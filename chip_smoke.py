@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning main path on one NVIDIA GPU.
+"""Drive the PyTorch port's captioning and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,19 +7,25 @@ From the root of the repository, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every kernel of the path from csrc/ (one nvcc per source, in
-   parallel) and prints the build time;
-3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (stated tolerances) and takes the device time
-   (torch.profiler) of the kernel, the plain version, and the one PyTorch
-   library call that computes the same function where there is one (SDPA
-   for attention), beside the least time the card could take (the bound);
+2. builds every kernel from csrc/ (one nvcc per source, in parallel) and
+   prints the build time;
+3. holds each kernel (K1 attention, K2/K3 sampler, K4 filter) against its
+   plain PyTorch version on the card at the paths' shapes (stated
+   tolerances) and takes the device time (torch.profiler) of the kernel,
+   the plain version, and the one PyTorch library call that computes the
+   same function where there is one (SDPA for attention), beside the least
+   time the card could take (the bound);
 4. drives the main path at full width — CLIP ViT-B/32 at 224 px, the default
    ClipCap mapper, GPT-2 124M, seeded random f32 weights — through
    CaptionerBundle.encode_image, greedy generate, NoBeamCaptionSampler and a
    "fused_step" generate, with every launch counter set to 0 just before and
    read just after; checks the outputs against the same port on the CPU;
-5. prints one JSON line of kernels, the card line, and last
+5. drives the serving path on the same model: ServingEngine.serve over 256
+   requests on 64 slots, greedy, "fused" and "fused_step", with the launch
+   counters set to 0 just before and read just after; checks greedy
+   requests against their solo generate and one sampler launch per
+   dispatched step;
+6. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -271,6 +277,55 @@ def check_sampler(torch, FS, S):
     return results
 
 
+def check_filter(torch, FS, S):
+    """K4 at [72, 50257]: the filtered logits equal the plain version's
+    exactly (the same -inf pattern, kept values bit for bit) with the top-p
+    sweep and top-k 40 on alternate rows, and with each filter alone; the
+    kept set is S.top_k_top_p_filter_threshold's. Returns its numbers and
+    its launches in this phase (no decode path calls it)."""
+    rows, vocab = 72, 50257
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(rows, vocab, generator=gen, device="cuda") * 3
+    top_p = torch.tensor(TOP_P_SWEEP * 8, device="cuda")
+    top_k = torch.tensor(([0.0, 40.0] * 36), device="cuda")
+    kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
+    before = FS.LAUNCHES["fused_filter"]
+    for do_topk, do_topp in ((True, True), (True, False), (False, True)):
+        got = FS.fused_filter(x, top_k, top_p, do_topk=do_topk, do_topp=do_topp)
+        want = FS.fused_filter_plain(x, kk, top_p, do_topk=do_topk, do_topp=do_topp)
+        torch.cuda.synchronize()
+        what = f"K4 top-k {do_topk} top-p {do_topp}"
+        check(torch.equal(torch.isfinite(got), torch.isfinite(want)),
+              f"{what}: kept set differs from the plain version")
+        check(torch.equal(got, want), f"{what}: kept values differ from the plain version")
+        check(torch.equal(got[torch.isfinite(got)], x[torch.isfinite(got)]),
+              f"{what}: kept values are not the input's")
+        thr = S.top_k_top_p_filter_threshold(x, top_k if do_topk else 0,
+                                             top_p if do_topp else 0.0, iters=FS.DEFAULT_ITERS)
+        check(torch.equal(torch.isfinite(got), torch.isfinite(thr)),
+              f"{what}: kept set differs from top_k_top_p_filter_threshold")
+
+    def k4():
+        return FS.fused_filter(x, top_k, top_p)
+
+    ms = device_ms(torch, k4, kernel="sampler_kernel")
+    wall = time_ms(torch, k4)
+    plain = device_ms(torch, lambda: FS.fused_filter_plain(x, kk, top_p), 5)
+    # bytes: the f32 logits read once and the filtered row written once, plus
+    # the per-row settings; operations per token: max, a top-k and a top-p
+    # cutoff by four-pass radix selects (12 each), the softmax (4)
+    b4, by4 = bound(2 * rows * vocab * 4 + rows * 8, rows * vocab * (1 + 12 + 12 + 4),
+                    F32_OPS_PER_S)
+    launches = FS.LAUNCHES["fused_filter"] - before
+    say(f"K4 [{rows}, {vocab}] top-p sweep + top-k 40 on alternate rows: filtered logits "
+        f"exactly the plain version's, alone and with each filter alone; kept set that of "
+        f"top_k_top_p_filter_threshold")
+    say(f"K4 [{rows}, {vocab}] (device ms): kernel {ms:.4f}, plain {plain:.4f}, bound "
+        f"{b4:.4f} ({by4}); wrapper wall {wall:.4f}; {launches} launches in this phase")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b4, bound_by=by4,
+                library_ms=None), launches
+
+
 # --- 4. the main path ----------------------------------------------------------------
 
 
@@ -290,22 +345,28 @@ def greedy_with_gaps(torch, lm, prompt, n: int):
     return torch.stack(toks, 1), torch.stack(gaps, 1)
 
 
-def main_path(torch, counters):
+def make_bundle(torch):
+    """CLIP ViT-B/32 + the default mapper + GPT-2 124M at full width on the
+    card, seeded random f32 weights."""
     from clipcap_tpu_torch.core.config import CaptionerConfig, GPT2Config, MapperConfig, ViTConfig
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+
+    cap_cfg = CaptionerConfig(lm_type="gpt2", visual_encoder_type="CLIP",
+                              visual_encoder_variant="ViT-B/32", mapper=MapperConfig())
+    bundle = CaptionerBundle.create(cap_cfg, GPT2Config.variant("gpt2"), IdTokenizer(),
+                                    ViTConfig.clip_variant("ViT-B/32"), seed=0, device="cuda")
+    n_params = sum(p.numel() for p in bundle.model.parameters())
+    say(f"model: ViT-B/32 + mapper (8 layers, 512->768, prefix 10) + GPT-2 124M, "
+        f"{n_params / 1e6:.1f}M params, f32, random weights (seed 0)")
+    return bundle
+
+
+def main_path(torch, counters, bundle):
     from clipcap_tpu_torch.data.preprocessing import normalize_on_device
     from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
     from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
-    from clipcap_tpu_torch.models.bundle import CaptionerBundle
 
-    vit_cfg = ViTConfig.clip_variant("ViT-B/32")
-    cap_cfg = CaptionerConfig(lm_type="gpt2", visual_encoder_type="CLIP",
-                              visual_encoder_variant="ViT-B/32", mapper=MapperConfig())
-    lm_cfg = GPT2Config.variant("gpt2")
-    bundle = CaptionerBundle.create(cap_cfg, lm_cfg, IdTokenizer(), vit_cfg, seed=0,
-                                    device="cuda")
-    n_params = sum(p.numel() for p in bundle.model.parameters())
-    say(f"main path: ViT-B/32 + mapper (8 layers, 512->768, prefix 10) + GPT-2 124M, "
-        f"{n_params / 1e6:.1f}M params, f32, random weights (seed 0)")
+    vit_cfg, lm_cfg = bundle.vit_cfg, bundle.lm_cfg
     gen = torch.Generator(device="cuda").manual_seed(3)
     pixels = normalize_on_device(torch.rand(64, 3, 224, 224, generator=gen, device="cuda"))
     sampler = NoBeamCaptionSampler(top_p_values=TOP_P_SWEEP, device="cuda")
@@ -406,16 +467,135 @@ def main_path(torch, counters):
     check(bool(torch.isfinite(lp).all() and (lp <= 0).all()), "eos_logprob not a log-prob")
     say(f"(d) fused_step generate 8x{n_new}: {8 / secs['d']:.2f} captions/s; "
         f"eos_logprob in [{float(lp.min()):.3f}, {float(lp.max()):.3f}]")
-    profile_sampler(torch, lambda: sampler.sample_batch(bundle, pixels[:8]), secs["c"] * 1e3)
+    profile_call(torch, "(c)", lambda: sampler.sample_batch(bundle, pixels[:8]), secs["c"] * 1e3)
     return launches, {"images_per_s": 64 / secs["a"], "captions_per_s": n_caps / secs["c"]}
 
 
-def profile_sampler(torch, run, wall_ms: float) -> None:
-    """Where the time of one sample_batch call goes: the device time of each
-    kernel (torch.profiler, CUPTI), summed, as a share of the wall time of
-    the same profiled call, and beside `wall_ms`, the wall of an earlier
-    unprofiled call of the same work (the profiler slows the host side).
-    Raises if the profiler recorded no kernel."""
+# --- 5. the serving path -------------------------------------------------------------
+
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_SYNC, SERVE_NEW, EOS = 256, 64, 8, 24, 50256
+
+
+def first_difference(a, b) -> int:
+    return next(j for j in range(max(len(a), len(b)))
+                if j >= len(a) or j >= len(b) or a[j] != b[j])
+
+
+def serving_path(torch, counters, bundle):
+    """(e) continuous batching at full width: 256 requests from a pool of
+    project_prefix outputs, per-request caps 8-24 from a seed, 64 slots, 8
+    steps per sync, through bundle.make_serving_engine and
+    ServingEngine.serve: (e1) greedy at pipeline_depth 1 against the card's
+    own solo generate of the first 16 requests; (e2) top-p 0.8 "fused" at
+    depth 2, one K2 launch per dispatched step; (e3) "fused_step" with
+    repetition penalty 1.2 and min_length 5 at depth 2, one K3 launch per
+    dispatched step. The launch counters are set to 0 just before the three
+    serves and read just after. Then a small greedy run shows that the
+    pipelined and the synchronous loop give the same tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.decode.serving import Request
+
+    dev, vocab = bundle.device, bundle.lm_cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pool = bundle.project_prefix(torch.randn(SERVE_REQUESTS, bundle.cap_cfg.mapper.dim_clip,
+                                             generator=gen, device=dev))
+    caps = np.random.default_rng(6).integers(8, 25, SERVE_REQUESTS).tolist()
+    reqs = [Request(i, i, max_length=c) for i, c in enumerate(caps)]
+    base = GenerationSettings(max_new_tokens=SERVE_NEW, eos_token_id=EOS)
+    greedy = dataclasses.replace(base, greedy=True)
+    runs = {"e1": ("greedy", greedy, 1, None),
+            "e2": ('top-p 0.8, "fused"', dataclasses.replace(base, top_p=0.8), 2,
+                   "fused_filter_sample"),
+            "e3": ('top-p 0.8, "fused_step", repetition penalty 1.2, min_length 5',
+                   dataclasses.replace(base, top_p=0.8, repetition_penalty=1.2, min_length=5,
+                                       filter_method="fused_step"), 2, "fused_step_sample")}
+    engines = {name: bundle.make_serving_engine(s, slots=SERVE_SLOTS, steps_per_sync=SERVE_SYNC,
+                                                pipeline_depth=depth).warmup()
+               for name, (_, s, depth, _) in runs.items()}
+
+    counters(reset=True)
+    served = {}
+    for name in runs:
+        before = counters()
+        t0 = time.perf_counter()
+        res = engines[name].serve(reqs, seed=7, prefix_pool=pool)
+        wall = time.perf_counter() - t0
+        after = counters()
+        served[name] = (res, wall, {k: after[k] - before[k] for k in after},
+                        engines[name].last_stats)
+    launches = counters()
+
+    rates = {}
+    for name, (desc, settings, depth, kernel) in runs.items():
+        res, wall, rise, stats = served[name]
+        check(sorted(res) == list(range(SERVE_REQUESTS)), f"({name}) not every request answered")
+        for i, r in res.items():
+            toks = r["tokens"]
+            check(0 < len(toks) <= caps[i] and r["length"] == len(toks),
+                  f"({name}) request {i}: {len(toks)} tokens, cap {caps[i]}")
+            check(all(0 <= t < vocab for t in toks), f"({name}) token outside the vocabulary")
+        for k in ("fused_filter_sample", "fused_step_sample"):
+            want = stats["steps"] if k == kernel else 0
+            check(rise[k] == want, f"({name}) {k} launched {rise[k]} times over "
+                  f"{stats['steps']} dispatched steps, want {want}")
+        lat = np.asarray([r["latency_s"] for r in res.values()])
+        rates[name] = dict(captions_per_s=SERVE_REQUESTS / wall,
+                           p50_s=float(np.percentile(lat, 50)),
+                           p99_s=float(np.percentile(lat, 99)), occupancy=stats["occupancy"],
+                           steps=stats["steps"], refills=sum(stats["refills"].values()),
+                           pipeline_depth=depth)
+        say(f"({name}) serve {SERVE_REQUESTS} requests ({desc}; caps 8-24), {SERVE_SLOTS} slots, "
+            f"steps_per_sync {SERVE_SYNC}, pipeline_depth {depth}: "
+            f"{rates[name]['captions_per_s']:.2f} captions/s; latency_s p50 "
+            f"{rates[name]['p50_s']:.4f}, p99 {rates[name]['p99_s']:.4f}; occupancy "
+            f"{stats['occupancy']}; {stats['steps']} steps; {rates[name]['refills']} refills; "
+            f"host: chunk dispatch {stats['dispatch_s']:.3f} s, refill dispatch "
+            f"{stats['refill_dispatch_s']:.3f} s, harvest wait {stats['harvest_wait_s']:.3f} s; "
+            f"K2 +{rise['fused_filter_sample']}, K3 +{rise['fused_step_sample']}")
+
+    # (e1): the first 16 requests against the card's solo static engine
+    flips = 0
+    for i in range(16):
+        ref = generate(bundle.lm, pool[i:i + 1], dataclasses.replace(greedy, max_length=caps[i]),
+                       device=dev)
+        want = ref["tokens"][0, : int(ref["lengths"][0])].tolist()
+        got = served["e1"][0][i]["tokens"]
+        if got != want:
+            s = first_difference(got, want)
+            _, gaps = greedy_with_gaps(torch, bundle.lm, pool[i:i + 1], SERVE_NEW)
+            gap = float(gaps[0, s])
+            check(gap < FLIP_GAP, f"(e1) request {i} differs from its solo run at step {s} "
+                  f"where the solo top-2 gap is {gap:.3e} (>= {FLIP_GAP})")
+            flips += 1
+    # (e3): no eos before min_length
+    check(all(EOS not in r["tokens"][:5] for r in served["e3"][0].values()),
+          "(e3) eos emitted before min_length")
+    # the pipelined and the synchronous loop on a small greedy run
+    small = reqs[:48]
+    a, b = (bundle.make_serving_engine(greedy, slots=16, steps_per_sync=4,
+                                       pipeline_depth=d).serve(small, prefix_pool=pool)
+            for d in (1, 2))
+    check(all(a[r.request_id]["tokens"] == b[r.request_id]["tokens"] for r in small),
+          "pipeline_depth 1 and 2 give different greedy tokens")
+    say(f"(e) serving checks: (e1) first 16 requests equal their solo generate "
+        f"(near-tie flips: {flips}); (e2)/(e3) one sampler launch per dispatched step, tokens "
+        f"in the vocabulary, lengths within caps; (e3) no eos before min_length; "
+        f"48 requests on 16 slots: pipeline_depth 1 and 2 give the same greedy tokens")
+    profile_call(torch, "(e2)", lambda: engines["e2"].serve(reqs, seed=7, prefix_pool=pool),
+                 served["e2"][1] * 1e3)
+    return launches, rates
+
+
+def profile_call(torch, label: str, run, wall_ms: float) -> None:
+    """Where the time of one call goes: the device time of each kernel
+    (torch.profiler, CUPTI), summed, as a share of the wall time of the same
+    profiled call, and beside `wall_ms`, the wall of an earlier unprofiled
+    call of the same work (the profiler slows the host side). Raises if the
+    profiler recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -429,14 +609,14 @@ def profile_sampler(torch, run, wall_ms: float) -> None:
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda e: -e[1])
-    check(bool(kernels), "profile (c): the profiler recorded no CUDA kernel")
+    check(bool(kernels), f"profile {label}: the profiler recorded no CUDA kernel")
     busy_ms = sum(ms for _, ms, _ in kernels)
     launches = sum(n for _, _, n in kernels)
     top = "; ".join(f"{name[:40]} {ms:.2f} ms x{n}" for name, ms, n in kernels[:8])
-    say(f"profile (c): {launches} kernel launches, device busy {busy_ms:.1f} ms = "
+    say(f"profile {label}: {launches} kernel launches, device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / prof_wall_ms:.1f}% of this call's {prof_wall_ms:.1f} ms wall under "
         f"the profiler ({100 * busy_ms / wall_ms:.1f}% of the {wall_ms:.1f} ms wall of the "
-        f"unprofiled call (c)); top: {top}")
+        f"unprofiled call {label}); top: {top}")
 
 
 def main() -> int:
@@ -478,22 +658,41 @@ def main() -> int:
 
     k1 = check_attention(torch, FA)
     k23 = check_sampler(torch, FS, S)
-    launches, rates = main_path(torch, counters)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    k4, k4_launches = check_filter(torch, FS, S)
+    bundle = make_bundle(torch)
+    t0 = time.perf_counter()
+    main_launches, rates = main_path(torch, counters, bundle)
+    say(f"main path phases (a)-(d) and profile: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_launches, serve_rates = serving_path(torch, counters, bundle)
+    say(f"serving phase (e): {time.perf_counter() - t0:.1f} s")
+    # each kernel that a path runs was launched there (K4 has no path)
+    paths = {"fused_attention": {"main": main_launches["fused_attention"]},
+             "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
+                                     "serving": serve_launches["fused_filter_sample"]},
+             "fused_step_sample": {"main": main_launches["fused_step_sample"],
+                                   "serving": serve_launches["fused_step_sample"]},
+             "fused_filter": {"kernel_phase": k4_launches}}
+    for name, by_path in paths.items():
+        if name != "fused_filter":
+            for path, n in by_path.items():
+                check(n > 0, f"kernel {name} was not launched on the {path} path")
 
+    sampler_src = "clipcap_tpu_torch/csrc/fused_sampler.cu"
     sources = {"fused_attention": ("clipcap_tpu_torch/csrc/fused_attention.cu",
                                    "clipcap_tpu/ops/pallas/fused_attention.py:68", k1),
-               "fused_filter_sample": ("clipcap_tpu_torch/csrc/fused_sampler.cu",
-                                       "clipcap_tpu/ops/pallas/fused_sampler.py:255",
+               "fused_filter_sample": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:255",
                                        k23["fused_filter_sample"]),
-               "fused_step_sample": ("clipcap_tpu_torch/csrc/fused_sampler.cu",
-                                     "clipcap_tpu/ops/pallas/fused_sampler.py:371",
-                                     k23["fused_step_sample"])}
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-                    **nums) for name, (src, rep, nums) in sources.items()]
+               "fused_step_sample": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:371",
+                                     k23["fused_step_sample"]),
+               "fused_filter": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:447", k4)}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=sum(paths[name].values()), launches_by_path=paths[name],
+                    on_path=name != "fused_filter", **nums)
+               for name, (src, rep, nums) in sources.items()]
     say(f"main path on {card}: {rates['images_per_s']:.1f} images/s (ViT-B/32 encode, B=64), "
         f"{rates['captions_per_s']:.2f} captions/s (NoBeam sampler, 72 rows)")
+    say(f"serving on {card}: " + json.dumps(serve_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

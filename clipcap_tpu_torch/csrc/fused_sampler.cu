@@ -1,8 +1,12 @@
 // Fused per-step logit filter + Gumbel top-2 sampler (Hopper, sm_90a).
 //
-// Replaces the TPU kernel clipcap_tpu/ops/pallas/fused_sampler.py
-// (_sampler_kernel, reached through fused_filter_sample and, with its
-// prologue, fused_step_sample). Per row of [B, V] f32 logits, in order:
+// Replaces the TPU kernels of clipcap_tpu/ops/pallas/fused_sampler.py:
+// _sampler_kernel, reached through fused_filter_sample and, with its
+// prologue, fused_step_sample; and filt_kernel (fused_filter), which is the
+// FILTER output mode below: the same top-k/top-p passes, then the filtered
+// row (masked = -inf, kept values bit for bit the input's) is written back
+// to a [B, V] output and the sampler is skipped. Per row of [B, V] f32
+// logits, in order:
 //   prologue (fused_step_sample only): raw log P(eos) by a logsumexp,
 //     min-length eos suppression, the CTRL repetition penalty from an int8
 //     `appears` row, temperature;
@@ -35,7 +39,8 @@
 //
 // Bound on the H100: the row must cross device memory once (4 bytes per
 // logit, plus 1 byte per token of `appears` for the penalty), ~14.5 MB at
-// [72, 50257], ~4.3 us at 3.35 TB/s. This first version is far from that:
+// [72, 50257], ~4.3 us at 3.35 TB/s; the FILTER mode also writes the row
+// back, 29.0 MB, ~8.6 us. This first version is far from that:
 // one block per row leaves most SMs idle at small batch, and each bisection
 // step is a full pass over shared memory with two barriers.
 
@@ -58,6 +63,7 @@ enum : int {
   SUPPRESS = 32,
   EOS_LP = 64,
   TEMPERATURE = 128,
+  FILTER = 256,
 };
 
 struct Scratch {
@@ -161,7 +167,8 @@ sampler_kernel(const float* __restrict__ logits, const float* __restrict__ top_k
                const float* __restrict__ top_p, const int8_t* __restrict__ appears,
                const float* __restrict__ suppress, const float* __restrict__ noise,
                int* __restrict__ next_out, int* __restrict__ alt_out,
-               float* __restrict__ alt_prob_out, float* __restrict__ eos_lp_out, int vocab,
+               float* __restrict__ alt_prob_out, float* __restrict__ eos_lp_out,
+               float* __restrict__ filtered_out, int vocab,
                int flags, int iters, float penalty, float inv_temp, int eos_id,
                unsigned long long seed) {
   extern __shared__ float x[];  // one row of logits, [vocab]
@@ -246,6 +253,12 @@ sampler_kernel(const float* __restrict__ logits, const float* __restrict__ top_k
     __syncthreads();
   }
 
+  // ---- fused_filter: the filtered row is the output ----
+  if (flags & FILTER) {
+    for (int j = tid; j < vocab; j += THREADS) filtered_out[off + j] = x[j];
+    return;
+  }
+
   // ---- Gumbel top-2 ----
   const uint32_t k0 = (uint32_t)(seed & 0xffffffffull), k1 = (uint32_t)(seed >> 32);
   float v1 = -INFINITY;
@@ -308,7 +321,27 @@ extern "C" int clipcap_fused_sampler(const void* logits, const void* top_k, cons
       static_cast<const float*>(top_p), static_cast<const int8_t*>(appears),
       static_cast<const float*>(suppress), static_cast<const float*>(noise),
       static_cast<int*>(next_out), static_cast<int*>(alt_out),
-      static_cast<float*>(alt_prob_out), static_cast<float*>(eos_lp_out), vocab, flags, iters,
-      penalty, inv_temp, eos_id, seed);
+      static_cast<float*>(alt_prob_out), static_cast<float*>(eos_lp_out), nullptr, vocab,
+      flags & ~FILTER, iters, penalty, inv_temp, eos_id, seed);
+  return (int)cudaGetLastError();
+}
+
+// fused_filter: logits [rows, vocab] f32, top_k, top_p [rows] f32 ->
+// filtered_out [rows, vocab] f32. `flags` takes TOPK and TOPP only. Returns
+// the cudaError_t of the launch.
+extern "C" int clipcap_fused_filter(const void* logits, const void* top_k, const void* top_p,
+                                    void* filtered_out, int rows, int vocab, int flags, int iters,
+                                    void* stream) {
+  if (rows <= 0 || vocab <= 0 || vocab > clipcap_sampler_max_vocab())
+    return (int)cudaErrorInvalidValue;
+  const int smem = vocab * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(sampler_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  sampler_kernel<<<rows, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(logits), static_cast<const float*>(top_k),
+      static_cast<const float*>(top_p), nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, static_cast<float*>(filtered_out), vocab, (flags & (TOPK | TOPP)) | FILTER, iters,
+      1.f, 1.f, -1, 0ull);
   return (int)cudaGetLastError();
 }

@@ -14,10 +14,12 @@ a TPU" read as "on CUDA":
   typ_p or sentence-length penalty), the step takes the threshold path,
   exactly as the JAX engine does on the CPU.
 
-Randomness: `seed` seeds a `torch.Generator` for the Gumbel draws of the
-threshold path and the per-step seeds of the kernels' Philox generator.
-`gumbel_noise` [N, B, V] injects the per-step draws instead (tests feed
-JAX's `jax.random.gumbel` draws to reproduce its trajectories).
+Randomness: `seed` seeds a `StepRandomness`: a `torch.Generator` for the
+Gumbel draws of the threshold path and the per-step seeds of the kernels'
+Philox generator. `gumbel_noise` [N, B, V] injects the per-step draws
+instead (tests feed JAX's `jax.random.gumbel` draws to reproduce its
+trajectories). The per-step pipeline (`sample_step`) and completion logic
+(`complete_step`) are shared with the serving chunk (decode/serving.py).
 """
 
 from __future__ import annotations
@@ -68,6 +70,23 @@ class GenerationSettings:
     filter_method: str = "fused"
 
     pad_token_id: int = 0
+
+
+class StepRandomness:
+    """The per-step randomness of a decode loop, drawn from one seed.
+
+    Each step takes `step_seed()`, the 64-bit seed of the kernels' Philox
+    generator (from a CPU generator: no device sync), and the threshold
+    path draws its Gumbel noise from `generator` on the loop's device.
+    generate and the serving chunk both draw through this, so a serve with
+    no refill consumes the same stream as generate with the same seed."""
+
+    def __init__(self, seed: int, device):
+        self.generator = torch.Generator(device=device).manual_seed(int(seed))
+        self._seeds = torch.Generator().manual_seed(int(seed))
+
+    def step_seed(self) -> int:
+        return int(torch.randint(0, 2**62, (1,), generator=self._seeds))
 
 
 def _check_filter_method(settings: GenerationSettings) -> None:
@@ -130,6 +149,110 @@ def filter_and_sample(
     return next_token, alt_token, alt_prob
 
 
+def uses_fused_step(settings: GenerationSettings, device) -> bool:
+    """Whether the sampled step runs K3: "fused_step" on CUDA, wherever the
+    fused sampler itself applies and penalty and temperature are scalars
+    (the JAX engine's rule, engine.py:288-299)."""
+    pen = settings.repetition_penalty
+    pen = 1.0 if pen in (None, 0.0) else pen
+    return (settings.filter_method == "fused_step"
+            and not settings.greedy
+            and not S.is_active(settings.typ_p)
+            and not (settings.desired_sentence_length > 0 and settings.stop_token_id is not None)
+            and isinstance(pen, (int, float))
+            and isinstance(settings.temperature, (int, float))
+            and torch.device(device).type == "cuda")
+
+
+def sample_step(
+    settings: GenerationSettings,
+    logits: torch.Tensor,  # [B, V] f32 raw step logits
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    typ_p: torch.Tensor,
+    rand: StepRandomness,
+    *,
+    use_fused_step: bool,
+    counter,  # int step, or [B] steps since each row's start (min-length gate)
+    min_len: torch.Tensor,  # [B]
+    hist: torch.Tensor,  # [B, H] token history (repetition penalty)
+    hist_valid: torch.Tensor,  # [B, H] bool
+    step: int = 0,  # sentence-length penalty input
+    gumbel_noise: Optional[torch.Tensor] = None,  # [B, V]
+):
+    """One step's pre-filter pipeline and sampler, shared by generate and
+    the serving chunk: raw log P(eos), min-length eos suppression where
+    counter < min_len, repetition penalty, then filter_and_sample (K2 on
+    CUDA) or, for use_fused_step, all of it in K3. Draws the step's
+    randomness from `rand`. Returns (next [B] i64, alt [B] i64,
+    alt_prob [B], raw eos logprob [B] or None)."""
+    eos = settings.eos_token_id
+    step_seed = rand.step_seed()
+    if use_fused_step:
+        pen = settings.repetition_penalty
+        pen = 1.0 if pen in (None, 0.0) else float(pen)
+        appears = (S.token_occurrence_mask(hist, logits.shape[1], hist_valid)
+                   if pen != 1.0 else None)
+        t = settings.temperature
+        next_token, alt_token, alt_prob, raw_eos_lp = fused_step_sample(
+            logits, top_k, top_p, step_seed, appears=appears, penalty=pen,
+            temperature=float(t if t > 0 else 1.0), eos_token_id=eos,
+            suppress_eos=(counter < min_len) if eos is not None else None,
+            want_eos_lp=eos is not None, do_topk=S.is_active(settings.top_k),
+            do_topp=S.is_active(settings.top_p),
+            want_alt_prob=(not settings.greedy) and settings.min_alternate_prob > 0,
+            gumbel_noise=gumbel_noise)
+    else:
+        raw_eos_lp = None
+        if eos is not None:
+            # raw (pre-filter) log P(eos), then min-length suppression
+            # (reference sampling.py:205-206, :228-235)
+            raw_eos_lp = logits[:, eos] - torch.logsumexp(logits, dim=-1)
+            logits = logits.clone()
+            logits[:, eos] = torch.where(counter < min_len, float("-inf"), logits[:, eos])
+        if settings.repetition_penalty not in (None, 0.0, 1.0):
+            logits = S.repetition_penalty(logits, hist, settings.repetition_penalty,
+                                          tokens_valid=hist_valid)
+        next_token, alt_token, alt_prob = filter_and_sample(
+            settings, logits, top_k, top_p, typ_p, step, seed=step_seed,
+            generator=rand.generator, gumbel_noise=gumbel_noise)
+    return next_token.to(torch.int64), alt_token.to(torch.int64), alt_prob, raw_eos_lp
+
+
+def complete_step(settings: GenerationSettings, next_token, alt_token, alt_prob, raw_eos_lp, *,
+                  counter, max_len: torch.Tensor, stops: torch.Tensor):
+    """The engine's completion logic for one step, shared by generate and
+    the serving chunk; `counter` is the step (an int, or each row's [B]
+    steps since its start). Returns (next_token after the alternate-token
+    continuation, completed, over_length, stops), each [B]."""
+    eos = settings.eos_token_id
+    completed = torch.zeros(next_token.shape, dtype=torch.bool, device=next_token.device)
+    over_length = torch.zeros_like(completed)
+    if eos is not None:
+        completed |= next_token == eos
+        # the reference splices length-capped rows out BEFORE appending
+        # the sampled token (sampling.py:252-268): this step's token is
+        # suppressed, not emitted
+        over_length = max_len <= counter
+        completed |= over_length
+        if settings.force_eos_log_prob < 0:
+            force_eos = raw_eos_lp > settings.force_eos_log_prob
+            completed |= force_eos
+            over_length = over_length | force_eos
+        # alternate-token continuation (reference sampling.py:240-250)
+        if settings.min_alternate_prob > 0 and not settings.greedy:
+            cont = (completed & (max_len > counter) & (alt_token != eos)
+                    & (alt_prob > settings.min_alternate_prob))
+            next_token = torch.where(cont, alt_token, next_token)
+            completed = completed & ~cont
+    if settings.stop_token_id is not None:
+        stops = stops + (next_token == settings.stop_token_id).to(stops.dtype)
+        completed |= stops >= settings.max_stops
+    for sid in settings.stop_on_special:
+        completed |= next_token == sid
+    return next_token, completed, over_length, stops
+
+
 @torch.no_grad()
 def generate(
     lm,  # LM module implementing the lm/registry protocol
@@ -173,88 +296,25 @@ def generate(
         hist[:, :n_prompt_tok] = prompt_tokens.to(dev)
         hist_valid[:, :n_prompt_tok] = True
 
-    generator = torch.Generator(device=dev).manual_seed(int(seed))
-    step_seeds = torch.randint(0, 2**62, (n,), generator=torch.Generator().manual_seed(int(seed))
-                               ).tolist()
+    rand = StepRandomness(seed, dev)
 
     cache = lm.init_cache(b, p_len + n, dtype=prompt_embeds.dtype)
     prefill_logits, cache = lm.prefill(prompt_embeds, cache)
     last_logits = prefill_logits[:, -1].float()
 
-    pen = settings.repetition_penalty
-    pen = 1.0 if pen in (None, 0.0) else pen
-    use_fused_step = (
-        settings.filter_method == "fused_step"
-        and not settings.greedy
-        and not S.is_active(settings.typ_p)
-        and not (settings.desired_sentence_length > 0 and settings.stop_token_id is not None)
-        and isinstance(pen, (int, float))
-        and isinstance(settings.temperature, (int, float))
-        and dev.type == "cuda"
-    )
-    want_alt = (not settings.greedy) and settings.min_alternate_prob > 0
-
+    use_fused_step = uses_fused_step(settings, dev)
     stopped = torch.zeros(b, dtype=torch.bool, device=dev)
     stops = torch.zeros(b, dtype=torch.int64, device=dev)
     tok_steps, live_steps, eos_steps = [], [], []
     for step in range(n):
-        logits = last_logits
-        noise = None if gumbel_noise is None else gumbel_noise[step]
-        if use_fused_step:
-            appears = (S.token_occurrence_mask(hist, logits.shape[1], hist_valid)
-                       if pen != 1.0 else None)
-            t = settings.temperature
-            next_token, alt_token, alt_prob, raw_eos_lp = fused_step_sample(
-                logits, top_k, top_p, step_seeds[step], appears=appears, penalty=float(pen),
-                temperature=float(t if t > 0 else 1.0), eos_token_id=eos,
-                suppress_eos=(step < min_len) if eos is not None else None,
-                want_eos_lp=eos is not None, do_topk=S.is_active(settings.top_k),
-                do_topp=S.is_active(settings.top_p), want_alt_prob=want_alt,
-                gumbel_noise=noise)
-        else:
-            raw_eos_lp = None
-            if eos is not None:
-                # raw (pre-filter) log P(eos), then min-length suppression
-                # (reference sampling.py:205-206, :228-235)
-                raw_eos_lp = logits[:, eos] - torch.logsumexp(logits, dim=-1)
-                logits = logits.clone()
-                logits[:, eos] = torch.where(step < min_len, float("-inf"), logits[:, eos])
-            if settings.repetition_penalty not in (None, 0.0, 1.0):
-                logits = S.repetition_penalty(logits, hist, settings.repetition_penalty,
-                                              tokens_valid=hist_valid)
-            next_token, alt_token, alt_prob = filter_and_sample(
-                settings, logits, top_k, top_p, typ_p, step, seed=step_seeds[step],
-                generator=generator, gumbel_noise=noise)
-        next_token = next_token.to(torch.int64)
-        alt_token = alt_token.to(torch.int64)
-
-        # ---- completion logic ------------------------------------------------
-        completed = torch.zeros(b, dtype=torch.bool, device=dev)
-        over_length = torch.zeros(b, dtype=torch.bool, device=dev)
-        eos_lp = torch.zeros(b, device=dev)
-        if eos is not None:
-            eos_lp = raw_eos_lp
-            completed |= next_token == eos
-            # the reference splices length-capped rows out BEFORE appending
-            # the sampled token (sampling.py:252-268): this step's token is
-            # suppressed, not emitted
-            over_length = max_len <= step
-            completed |= over_length
-            if settings.force_eos_log_prob < 0:
-                force_eos = eos_lp > settings.force_eos_log_prob
-                completed |= force_eos
-                over_length = over_length | force_eos
-            # alternate-token continuation (reference sampling.py:240-250)
-            if settings.min_alternate_prob > 0 and not settings.greedy:
-                cont = (completed & (max_len > step) & (alt_token != eos)
-                        & (alt_prob > settings.min_alternate_prob))
-                next_token = torch.where(cont, alt_token, next_token)
-                completed = completed & ~cont
-        if settings.stop_token_id is not None:
-            stops = stops + (next_token == settings.stop_token_id).to(torch.int64)
-            completed |= stops >= settings.max_stops
-        for sid in settings.stop_on_special:
-            completed |= next_token == sid
+        next_token, alt_token, alt_prob, raw_eos_lp = sample_step(
+            settings, last_logits, top_k, top_p, typ_p, rand, use_fused_step=use_fused_step,
+            counter=step, min_len=min_len, hist=hist, hist_valid=hist_valid, step=step,
+            gumbel_noise=None if gumbel_noise is None else gumbel_noise[step])
+        next_token, completed, over_length, stops = complete_step(
+            settings, next_token, alt_token, alt_prob, raw_eos_lp, counter=step,
+            max_len=max_len, stops=stops)
+        eos_lp = raw_eos_lp if eos is not None else torch.zeros(b, device=dev)
 
         suppress = stopped | over_length
         emitted = torch.where(suppress, settings.pad_token_id, next_token)

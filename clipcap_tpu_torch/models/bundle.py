@@ -1,10 +1,10 @@
 """CaptionerBundle: the runtime handle tying model, configs and tokenizer
 (port of clipcap_tpu/models/bundle.py: encode_image, project_prefix,
-prefix_from_pixels, embed_text).
+prefix_from_pixels, embed_text, make_serving_engine).
 
 The JAX bundle's params dict becomes a `Captioner` module. The bundle
 runs on `device`, the card unless asked for the CPU; the model must lie
-there. Multi-chip, int8 and serving hooks come with later slices.
+there. Multi-chip and int8 hooks come with later slices.
 """
 
 from __future__ import annotations
@@ -45,6 +45,25 @@ class CaptionerBundle:
     @property
     def lm(self):
         return self.model.lm
+
+    @property
+    def lm_decode(self):
+        """The LM module decode paths drive (the int8 variant comes with the
+        int8 slice)."""
+        return self.model.lm
+
+    def make_serving_engine(self, settings, slots: int = 256, **kw):
+        """Continuous-batching engine over this bundle's decode LM, on the
+        bundle's device. Drive it with `eng.serve(requests,
+        prefix_pool=...)`, where the pool rows are project_prefix outputs.
+        The activation dtype defaults to the LM weights' dtype."""
+        from ..decode.serving import ServingEngine
+
+        kw.setdefault("dtype", self.lm_decode.wte.dtype)
+        kw.setdefault("device", self.device)
+        return ServingEngine(self.lm_decode, self.lm_cfg,
+                             prefix_len=self.cap_cfg.mapper.prefix_length,
+                             settings=settings, slots=slots, **kw)
 
     # --- visual ------------------------------------------------------------------
 

@@ -13,6 +13,10 @@ its `apply` is `GPT2.forward`; `embed_tokens`, `init_cache`, `prefill`
 and `decode_step` are methods. Ported from `_forward_cached` are its semantics, not its TPU layout: the
 cache does not ride in a scan carry, and a decode step attends the first
 index+1 cached positions instead of the full maxT width under a mask.
+The ring branch (`decode_step_ring`, `scatter_refill`) serves continuous
+batching: the time axis is a ring written at index % maxT, and each row
+attends the full ring under its own window bias (ops/ring.py). Decode
+attention is plain torch ops, as the JAX package's is a plain einsum.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..core.config import GPT2Config
 from ..ops.activations import gelu_new
 from ..ops.attention import causal_bias, dot_product_attention, padding_bias
 from ..ops.layernorm import LayerNorm
+from ..ops.ring import paste_rows, refill_positions, ring_layout
 from .common import linear, make_generator, normal
 
 
@@ -112,23 +117,38 @@ class GPT2(nn.Module):
         return KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw), index=0)
 
     def _forward_cached(self, inputs_embeds: torch.Tensor, cache: KVCache, fresh: bool,
-                        full_logits: bool) -> Tuple[torch.Tensor, KVCache]:
+                        full_logits: bool, ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        ) -> Tuple[torch.Tensor, KVCache]:
         _, t, _ = inputs_embeds.shape
         idx = cache.index
-        if idx + t > cache.k.shape[2]:
-            raise ValueError(f"cache of {cache.k.shape[2]} positions cannot take {idx + t}")
-        x = inputs_embeds + self.wpe[idx: idx + t][None].to(inputs_embeds.dtype)
-        # query idx+i attends keys <= idx+i; a fresh prefill attends only its own keys
-        bias = causal_bias(t, idx + t, device=x.device) if t > 1 else None
+        a_len = cache.k.shape[2]
+        if ring is not None:
+            if t != 1:
+                raise ValueError("ring mode is decode-only (t == 1); refills prefill a fresh "
+                                 "small cache and scatter_refill it in")
+            pos, start = ring
+            wslot, ring_bias = ring_layout(idx, a_len, start)
+            # each serving slot is at its own logical position
+            x = inputs_embeds + self.wpe[pos.long()][:, None].to(inputs_embeds.dtype)
+            bias = ring_bias[:, None, None, :]  # [B, 1, 1, T]
+        else:
+            if idx + t > a_len:
+                raise ValueError(f"cache of {a_len} positions cannot take {idx + t}")
+            wslot = idx
+            x = inputs_embeds + self.wpe[idx: idx + t][None].to(inputs_embeds.dtype)
+            # query idx+i attends keys <= idx+i; a fresh prefill attends only its own keys
+            bias = causal_bias(t, idx + t, device=x.device) if t > 1 else None
         for layer, block in enumerate(self.blocks):
             q, k, v = block.qkv(x)
-            cache.k[layer, :, idx: idx + t] = k.to(cache.k.dtype)
-            cache.v[layer, :, idx: idx + t] = v.to(cache.v.dtype)
+            cache.k[layer, :, wslot: wslot + t] = k.to(cache.k.dtype)
+            cache.v[layer, :, wslot: wslot + t] = v.to(cache.v.dtype)
             if fresh:
                 attn = dot_product_attention(q, k, v, bias=bias)
             else:
-                keys = cache.k[layer, :, : idx + t]
-                vals = cache.v[layer, :, : idx + t]
+                # the ring attends its whole width under the window bias
+                end = a_len if ring is not None else idx + t
+                keys = cache.k[layer, :, :end]
+                vals = cache.v[layer, :, :end]
                 attn = dot_product_attention(q.to(keys.dtype), keys, vals, bias=bias)
             x = block.finish(x, attn)
         if not full_logits:
@@ -148,4 +168,30 @@ class GPT2(nn.Module):
         """One autoregressive step: token_embed [B, 1, D] -> logits [B, V]."""
         logits, cache = self._forward_cached(token_embed, cache, fresh=False, full_logits=False)
         return logits[:, -1], cache
+
+    def decode_step_ring(self, token_embed: torch.Tensor, cache: KVCache, pos: torch.Tensor,
+                         start: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+        """Ring-cache decode step for continuous batching (decode/serving.py).
+
+        cache.index is the GLOBAL step counter: the slab write lands at
+        index % maxT, the token's position embedding is wpe[pos[b]], and row
+        b attends exactly its own request's window [start[b], index]
+        (ops/ring.ring_layout). Requires maxT >= prompt + lifetime + 1: the
+        write at `index` overwrites timestep index - maxT, which the
+        longest-lived row still needs at equality."""
+        logits, cache = self._forward_cached(token_embed, cache, fresh=False, full_logits=False,
+                                             ring=(pos, start))
+        return logits[:, -1], cache
+
+    @staticmethod
+    def scatter_refill(cache: KVCache, small: KVCache, q: int) -> KVCache:
+        """Write a freshly prefilled R-row cache (init_cache(R, P) + prefill)
+        IN PLACE into the contiguous ring-cache row block [q, q+R). Its P
+        entries claim global timesteps [index - P, index - 1], the ring slots
+        (index - P + i) % maxT: the window ring_layout grants a row with
+        start = index - P. The index is unchanged."""
+        rp = refill_positions(cache.index, small.k.shape[2], cache.k.shape[2], cache.k.device)
+        paste_rows(cache.k, small.k, q, rp, time_axis=2)
+        paste_rows(cache.v, small.v, q, rp, time_axis=2)
+        return KVCache(cache.k, cache.v, cache.index)
 

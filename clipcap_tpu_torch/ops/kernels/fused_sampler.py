@@ -1,20 +1,24 @@
-"""K2/K3: the fused per-step logit filter + Gumbel top-2 sampler.
+"""K2/K3/K4: the fused per-step logit filter + Gumbel top-2 sampler, and
+the filter alone.
 
-Replaces the TPU kernel clipcap_tpu/ops/pallas/fused_sampler.py
+Replaces the TPU kernels of clipcap_tpu/ops/pallas/fused_sampler.py:
 `_sampler_kernel`, reached through `fused_filter_sample` (K2, the engine's
 default sampled step) and `fused_step_sample` (K3, the same kernel with the
 engine's pre-filter prologue: raw log P(eos), min-length eos suppression,
-the repetition penalty and temperature). The CUDA kernel is
+the repetition penalty and temperature); and `filt_kernel`, reached through
+`fused_filter` (K4, the same top-k/top-p kept set returned as [B, V]
+filtered logits, masked = -inf; the kernel's FILTER output mode, which
+writes the row back instead of sampling: 29.0 MB at [72, 50257], ~8.6 us
+bound by bytes). The CUDA kernel is
 csrc/fused_sampler.cu: one 1024-thread block per row holds the f32 row in
 shared memory (201 KB at V=50257) and runs every bisection and both
 arg-max passes there, so the logits cross device memory once. That read
 (plus the int8 `appears` row for K3) bounds it on the H100: 14.5 MB at
 [72, 50257], ~4.3 us; the source's header says what the design does.
 
-The wrappers launch the kernel for CUDA tensors and take `sampler_plain`,
-the TPU kernel's math in PyTorch, only for CPU tensors.
-`LAUNCHES["fused_filter_sample"]` and `LAUNCHES["fused_step_sample"]` count
-kernel launches.
+The wrappers launch the kernel for CUDA tensors and take `sampler_plain`
+(`fused_filter_plain` for K4), the TPU kernel's math in PyTorch, only for
+CPU tensors. `LAUNCHES[name]` counts each wrapper's kernel launches.
 
 Random numbers: with `gumbel_noise` given, both versions use it (tests feed
 the same draws to both). Otherwise the kernel draws from an in-kernel
@@ -33,7 +37,7 @@ import torch
 from .. import sampling as S
 from . import _build
 
-LAUNCHES = {"fused_filter_sample": 0, "fused_step_sample": 0}
+LAUNCHES = {"fused_filter_sample": 0, "fused_step_sample": 0, "fused_filter": 0}
 
 # bisection iterations of the TPU kernel (fused_sampler.py:45)
 DEFAULT_ITERS = 28
@@ -46,6 +50,31 @@ def resolve_top_k(top_k, batch: int, vocab: int, device="cuda") -> torch.Tensor:
     """Reference top-k resolution (sampling.py:126-148): 0 disables,
     0<k<1 keeps max(1, floor(k*V)), k>=1 keeps floor(k). Returns [B] f32."""
     return S.resolve_top_k_rows(S.per_row(top_k, batch, device), vocab)
+
+
+def _filter_plain(x: torch.Tensor, kk: torch.Tensor, pp: torch.Tensor, *, do_topk: bool,
+                  do_topp: bool, iters: int) -> torch.Tensor:
+    """The TPU kernels' top-k then top-p passes on f32 x [B, V] (kk, pp
+    [B, 1]): masked = -inf, kept values untouched."""
+    neg = torch.full((), float("-inf"), device=x.device)
+    zero = torch.zeros((), device=x.device)
+    hi0 = x.amax(dim=-1, keepdim=True)
+    if do_topk:
+        finite_min = torch.where(torch.isfinite(x), x, torch.full_like(x, float("inf"))
+                                 ).amin(dim=-1, keepdim=True)
+        lo_k, _ = S.bisect_desc(
+            lambda mid: (x >= mid).float().sum(dim=-1, keepdim=True) >= kk,
+            finite_min, hi0, iters)
+        x = torch.where((kk > 0) & (x < lo_k), neg, x)
+    if do_topp:
+        m = x.amax(dim=-1, keepdim=True)
+        e = torch.exp(x - m)
+        probs = e / e.sum(dim=-1, keepdim=True)
+        lo_p, _ = S.bisect_desc(
+            lambda mid: torch.where(x >= mid, probs, zero).sum(dim=-1, keepdim=True) > pp,
+            hi0 - 100.0, hi0, iters)
+        x = torch.where((x >= lo_p) | (pp <= 0.0), x, neg)
+    return x
 
 
 def sampler_plain(
@@ -90,22 +119,7 @@ def sampler_plain(
     if temperature != 1.0:
         x = x * (1.0 / temperature)
 
-    hi0 = x.amax(dim=-1, keepdim=True)
-    if do_topk:
-        finite_min = torch.where(torch.isfinite(x), x, torch.full_like(x, float("inf"))
-                                 ).amin(dim=-1, keepdim=True)
-        lo_k, _ = S.bisect_desc(
-            lambda mid: (x >= mid).float().sum(dim=-1, keepdim=True) >= kk,
-            finite_min, hi0, iters)
-        x = torch.where((kk > 0) & (x < lo_k), neg, x)
-    if do_topp:
-        m = x.amax(dim=-1, keepdim=True)
-        e = torch.exp(x - m)
-        probs = e / e.sum(dim=-1, keepdim=True)
-        lo_p, _ = S.bisect_desc(
-            lambda mid: torch.where(x >= mid, probs, zero).sum(dim=-1, keepdim=True) > pp,
-            hi0 - 100.0, hi0, iters)
-        x = torch.where((x >= lo_p) | (pp <= 0.0), x, neg)
+    x = _filter_plain(x, kk, pp, do_topk=do_topk, do_topp=do_topp, iters=iters)
 
     if gumbel_noise is None:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -258,3 +272,54 @@ def fused_step_sample(
     return _launch("fused_step_sample", logits.float().contiguous(), kk, pp, seed,
                    flags=flags, iters=iters, appears=appears, suppress=suppress, noise=noise,
                    penalty=penalty, temperature=temperature, eos_token_id=eos_token_id)
+
+
+def fused_filter_plain(
+    logits: torch.Tensor,  # [B, V]
+    kk: torch.Tensor,  # [B] f32 resolved top-k
+    pp: torch.Tensor,  # [B] f32 top-p
+    *,
+    do_topk: bool = True,
+    do_topp: bool = True,
+    iters: int = DEFAULT_ITERS,
+) -> torch.Tensor:
+    """The TPU `filt_kernel` step by step in PyTorch: [B, V] f32 filtered
+    logits, masked = -inf."""
+    b = logits.shape[0]
+    return _filter_plain(logits.float(), kk.float().reshape(b, 1), pp.float().reshape(b, 1),
+                         do_topk=do_topk, do_topp=do_topp, iters=iters)
+
+
+def fused_filter(
+    logits: torch.Tensor,  # [B, V] f32
+    top_k,
+    top_p,
+    *,
+    do_topk: bool = True,
+    do_topp: bool = True,
+    iters: int = DEFAULT_ITERS,
+) -> torch.Tensor:
+    """Filter only (K4): the top-k/top-p kept set of fused_filter_sample,
+    returned as [B, V] f32 logits with the rest at -inf. For callers that
+    need the filtered distribution itself; no decode path calls it."""
+    kk, pp = _rows(logits, top_k, top_p)
+    if logits.device.type == "cpu":
+        return fused_filter_plain(logits, kk, pp, do_topk=do_topk, do_topp=do_topp, iters=iters)
+    x = logits.float().contiguous()
+    b, vocab = x.shape
+    _build.check_cuda_tensor("logits", x, (torch.float32,))
+    lib = _build.library("fused_sampler")
+    if vocab > lib.clipcap_sampler_max_vocab():
+        raise ValueError(f"vocab {vocab} exceeds the shared-memory row of "
+                         f"{lib.clipcap_sampler_max_vocab()}")
+    fn = lib.clipcap_fused_filter
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(x)
+    flags = (_TOPK if do_topk else 0) | (_TOPP if do_topp else 0)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), kk.data_ptr(), pp.data_ptr(), out.data_ptr(), b, vocab, flags,
+                iters, _build.stream_handle(x.device))
+    _build.raise_on_error("fused_filter", rc)
+    LAUNCHES["fused_filter"] += 1
+    return out

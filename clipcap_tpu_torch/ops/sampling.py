@@ -162,7 +162,10 @@ def repetition_penalty(
     batch, vocab = logits.shape
     logits = logits.float()
     appears = token_occurrence_mask(tokens, vocab, tokens_valid)
-    pen = per_row(penalty, batch, logits.device)[:, None]
+    # a Python scalar is filled on the device: a tensor made on the host
+    # would cost a host-to-device copy (and a sync) every decode step
+    pen = (torch.full((batch, 1), float(penalty), device=logits.device)
+           if isinstance(penalty, (int, float)) else per_row(penalty, batch, logits.device)[:, None])
     penalized = torch.where(logits < 0, logits * pen, logits / pen)
     return torch.where(appears, penalized, logits)
 

@@ -88,7 +88,7 @@ def test_golden_sampled_top_p_with_jax_draws(golden_world):
                       TE.GenerationSettings(max_new_tokens=n, top_p=0.8, repetition_penalty=1.2),
                       gumbel_noise=noise, device="cpu")
     assert out["tokens"].tolist() == GOLDEN["sampled_top_p"]
-    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0}
+    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0, "fused_filter": 0}
 
 
 LM = dict(vocab_size=97, n_positions=64, n_embd=64, n_layer=2, n_head=4)
@@ -142,7 +142,7 @@ def test_cpu_fused_methods_take_the_threshold_path(method, small_world):
                     TE.GenerationSettings(filter_method="threshold", **kw), seed=3,
                     device="cpu")
     assert a["tokens"].tolist() == b["tokens"].tolist()
-    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0}
+    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0, "fused_filter": 0}
 
 
 def test_generate_refuses_other_device_and_sort(small_world):

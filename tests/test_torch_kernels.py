@@ -105,7 +105,33 @@ def test_fused_filter_sample_plain_matches_pallas(gates, rng):
     np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
     np.testing.assert_array_equal(_np(got[1]), _np(want[1]))
     np.testing.assert_allclose(_np(got[2]), _np(want[2]), rtol=1e-5, atol=1e-7)
-    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0}
+    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0, "fused_filter": 0}
+
+
+@pytest.mark.parametrize("gates", [(True, True), (True, False), (False, True)],
+                         ids=["topk_topp", "topk", "topp"])
+def test_fused_filter_plain_matches_pallas(gates, rng):
+    """K4: the filtered logits equal the Pallas `fused_filter`'s exactly
+    (the same -inf pattern, kept values the input's bit for bit), with a
+    top-p <= 0 row, fractional and disabled top-k rows, a -inf column and
+    B=6 not a multiple of the 4 block rows; the kept set is that of
+    S.top_k_top_p_filter_threshold."""
+    from clipcap_tpu_torch.ops import sampling as TS
+
+    do_topk, do_topp = gates
+    logits, k, p, _ = _case(rng)
+    want = JF.fused_filter(jnp.asarray(logits), jnp.asarray(k), jnp.asarray(p), do_topk=do_topk,
+                           do_topp=do_topp, interpret=True, block_rows=4)
+    t = torch.from_numpy
+    got = FS.fused_filter(t(logits), t(k), t(p), do_topk=do_topk, do_topp=do_topp)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    kept = np.isfinite(_np(got))
+    assert (np.where(kept, _np(got), 0) == np.where(kept, logits, 0)).all()
+    assert not kept[2, 7]
+    want_kept = np.isfinite(_np(TS.top_k_top_p_filter_threshold(
+        t(logits), t(k) if do_topk else 0, t(p) if do_topp else 0.0)))
+    np.testing.assert_array_equal(kept, want_kept)
+    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0, "fused_filter": 0}
 
 
 def test_fused_filter_sample_singleton_kept_set_alt_prob_zero():
@@ -136,7 +162,7 @@ def test_fused_step_sample_plain_matches_pallas(rng):
     np.testing.assert_array_equal(_np(got[1]), _np(want[1]))
     np.testing.assert_allclose(_np(got[2]), _np(want[2]), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(_np(got[3]), _np(want[3]), rtol=1e-5)
-    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0}
+    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0, "fused_filter": 0}
 
 
 def test_fused_step_sample_argument_checks():

@@ -97,7 +97,7 @@ def test_slice_captions_match_jax_bundle(vocab_dir):
     # the per-image entry point agrees with the batched one when the top token is pinned
     assert NoBeamCaptionSampler(**kw, device="cpu").sample(bundle, pixels[1]) == got[1]
     assert FA.LAUNCHES == {"fused_attention": 0}
-    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0}
+    assert FS.LAUNCHES == {"fused_filter_sample": 0, "fused_step_sample": 0, "fused_filter": 0}
 
 
 def test_bundle_refuses_model_on_another_device():
