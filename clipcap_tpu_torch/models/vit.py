@@ -66,9 +66,10 @@ class ViTBlock(nn.Module):
         heads, dh = self.heads, d // self.heads
         h = self.ln1(x)
         qkv = quant.linear(h, self.qkv.weight, self.qkv.bias)
+        # views of the packed projection: the kernel reads them in place
         q, k, v = (y.reshape(b, t, heads, dh) for y in qkv.chunk(3, dim=-1))
         if use_kernel_attention(t, dh, q):
-            attn = fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
+            attn = fused_attention(q, k, v)
         else:
             attn = dot_product_attention(q, k, v)
         x = x + quant.linear(attn.reshape(b, t, d), self.out.weight, self.out.bias)

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "clipcap_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,10 +45,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names: Iterable[str]) -> str:
+def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named kernel source not yet built, one `nvcc` per
-    source, all started together. Returns the compilers' output; raises
-    if any build fails."""
+    source, all started together. Returns each compiler's output by name
+    (with ptxas's registers, shared memory and spills per kernel) for the
+    sources it built; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
@@ -59,18 +60,18 @@ def build(names: Iterable[str]) -> str:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs = []
+    logs = {}
     failed = []
     for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        logs.append(f"== nvcc {name}.cu (rc {proc.returncode})\n{log}")
+        logs[name], _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(name)
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed for " + ", ".join(failed) + "\n" + "\n".join(logs))
-    return "\n".join(logs)
+        raise RuntimeError("kernel build failed for " + ", ".join(failed) + "\n" + "\n".join(
+            f"== nvcc {name}.cu\n{log}" for name, log in logs.items()))
+    return logs
 
 
 def library(name: str) -> ctypes.CDLL:

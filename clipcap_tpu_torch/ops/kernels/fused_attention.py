@@ -2,11 +2,18 @@
 
 Replaces the TPU kernel clipcap_tpu/ops/pallas/fused_attention.py
 (`fused_attention` -> `_attn_kernel`) with the hand-written CUDA kernel in
-csrc/fused_attention.cu: one block per (64-query tile, head, image), keys
-and values streamed through shared memory with an online f32 softmax, no
-[T, T] scores in device memory. Device memory bounds it on the H100 at the
-ViT-B/32 shape (q, k, v read once and o written once: 39.3 MB, ~11.7 us at
-B=64 in f32); see the source's header for what the design does about it.
+csrc/fused_attention.cu: one four-warp block per (64-query tile, head,
+image), both products on the tensor cores (mma.sync; error-compensated
+3xTF32 for f32 inputs, bf16 for bf16), an online f32 softmax in registers,
+no [T, T] scores in device memory. Device memory bounds it on the H100 at
+the ViT-B/32 shape (q, k, v read once and o written once: 39.3 MB, ~11.7 us
+at B=64 in f32); see the source's header for what the design does about it.
+
+q, k and v may be strided views, such as the three slices of a packed
+`[B, T, 3*H*dh]` qkv projection reshaped to `[B, T, H, dh]`: the kernel
+reads them in place. `attention_layout` checks the layout the kernel takes
+(last stride 1, head stride dh, 16-byte aligned token and batch strides and
+base addresses) and raises ValueError for any other; nothing is copied.
 
 `fused_attention` launches the kernel for CUDA tensors and takes
 `fused_attention_plain`, the same function in plain PyTorch, only for CPU
@@ -16,6 +23,7 @@ tensors. `LAUNCHES["fused_attention"]` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -24,6 +32,8 @@ from . import _build
 LAUNCHES = {"fused_attention": 0}
 MAX_SEQ = 1024
 HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+ALIGN_BYTES = 16  # the kernel's cp.async copies move 16 bytes
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -39,24 +49,63 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return out.to(q.dtype)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention_layout(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> Tuple[Tuple[int, int], ...]:
+    """The (batch, token) element strides of q, k and v for the kernel.
+
+    Each is a [B, T, H, dh] view of one shape and dtype, with last stride 1,
+    head stride dh, and a base address, token stride and batch stride that
+    are multiples of 16 bytes; dh is 64 or 128 and T at most MAX_SEQ.
+    Raises ValueError for anything else (the caller must not copy in
+    silence)."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, T, H, dh], got shape {tuple(q.shape)}")
     b, t, h, dh = q.shape
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _build.check_cuda_tensor(name, x, (torch.float32, torch.bfloat16), (b, t, h, dh))
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("q, k and v must share a dtype")
+    for name, x in (("k", k), ("v", v)):
+        if tuple(x.shape) != tuple(q.shape):
+            raise ValueError(f"{name} shape {tuple(x.shape)} != q shape {tuple(q.shape)}")
+        if x.dtype != q.dtype:
+            raise ValueError("q, k and v must share a dtype")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"dtype {q.dtype} not in {DTYPES}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
     if t > MAX_SEQ:
         raise ValueError(f"sequence {t} too long for the fused kernel (max {MAX_SEQ})")
+    vec = ALIGN_BYTES // q.element_size()
+    strides = []
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        sb, st, sh, sd = x.stride()
+        if sd != 1:
+            raise ValueError(f"{name}: last stride {sd}, want 1")
+        if sh != dh and h > 1:
+            raise ValueError(f"{name}: head stride {sh}, want head_dim {dh}")
+        if st % vec or st < h * dh:
+            raise ValueError(f"{name}: token stride {st} is not a multiple of {vec} elements "
+                             f"({ALIGN_BYTES} bytes) of at least heads*head_dim {h * dh}")
+        if sb % vec:
+            raise ValueError(f"{name}: batch stride {sb} is not a multiple of {vec} elements")
+        if x.data_ptr() % ALIGN_BYTES:
+            raise ValueError(f"{name}: base address not {ALIGN_BYTES}-byte aligned")
+        strides.append((sb, st))
+    return tuple(strides)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    b, t, h, dh = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda or x.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {x.device}")
+    (qb, qt), (kb, kt), (vb, vt) = attention_layout(q, k, v)
     lib = _build.library("fused_attention")
     fn = lib.clipcap_fused_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    out = torch.empty_like(q)
+    out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, dh,
-                0 if q.dtype == torch.float32 else 1, dh**-0.5,
+                0 if q.dtype == torch.float32 else 1, dh**-0.5, qb, qt, kb, kt, vb, vt,
                 _build.stream_handle(q.device))
     _build.raise_on_error("fused_attention", rc)
     LAUNCHES["fused_attention"] += 1
@@ -66,8 +115,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bidirectional attention over [B, T, H, dh]; returns [B, T, H, dh].
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    CUDA tensors launch the kernel (or raise), which writes a contiguous
+    output; CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v)
     return _launch(q, k, v)
