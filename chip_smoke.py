@@ -8,7 +8,7 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every kernel from csrc/ (one nvcc per source, in parallel) and
-   prints the build time and ptxas's registers and spills for K1;
+   prints the build time and ptxas's registers and spills;
 3. holds each kernel (K1 attention, K2/K3 sampler, K4 filter) against its
    plain PyTorch version on the card at the paths' shapes (stated
    tolerances; K1 also on views of one packed qkv projection, as the ViT
@@ -16,7 +16,11 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    kernel, the plain version, and the one PyTorch library call that
    computes the same function where there is one (SDPA for attention),
    beside the least time the card could take (the bound); K1 also L2-cold
-   and in bf16 at the main shape and at T=577;
+   and in bf16 at the main shape and at T=577; K2/K3/K4 at 1, 8, 64, 72
+   and 512 rows of V=50257 (every cluster size the launcher picks), on
+   hard rows (ties, all equal, -inf columns, top-p near 0 and 1), for
+   bit-identical repeats and Philox draws inside the kept set, and timed
+   at 8, 64, 72 and 512 rows with the cluster size used;
 4. drives the main path at full width — CLIP ViT-B/32 at 224 px, the default
    ClipCap mapper, GPT-2 124M, seeded random f32 weights — through
    CaptionerBundle.encode_image, greedy generate, NoBeamCaptionSampler and a
@@ -259,18 +263,120 @@ def sampler_bound(rows: int, vocab: int, prologue: bool):
     return bound(nbytes, rows * vocab * per_token, F32_OPS_PER_S)
 
 
-def check_sampler(torch, FS, S):
-    rows, vocab, eos = 72, 50257, 50256
-    gen = torch.Generator(device="cuda").manual_seed(2)
+def filter_bound(rows: int, vocab: int):
+    """K4: the f32 logits read once and the filtered row written once, plus
+    the per-row settings; operations per token: max, a top-k and a top-p
+    cutoff by four-pass radix selects (12 each), the softmax (4)."""
+    return bound(2 * rows * vocab * 4 + rows * 8, rows * vocab * (1 + 12 + 12 + 4),
+                 F32_OPS_PER_S)
+
+
+SAMPLER_ROWS = [1, 8, 64, 72, 512]  # every cluster size the launcher picks at V=50257
+TIMED_ROWS = [8, 64, 72, 512]
+HARD_KK = [1.0, 40.0, 50257.0]
+HARD_PP = [0.0, 1e-4, 0.5, 0.999, 1.0]
+TIE_MARGIN = 1e-5  # hard rows keep top-p this far (relative) from every cumulative mass
+
+
+def sampler_inputs(torch, S, rows, vocab, seed):
+    """Seeded logits (N(0, 9)), the top-p sweep and top-k 0/40 on alternate
+    rows, injected Gumbel noise, a 24-token history mask, and the eos gate on
+    even rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, vocab, generator=gen, device="cuda") * 3
-    top_p = torch.tensor(TOP_P_SWEEP * 8, device="cuda")
-    top_k = torch.tensor(([0.0, 40.0] * 36), device="cuda")
+    top_p = torch.tensor(TOP_P_SWEEP, device="cuda").repeat(rows // 9 + 1)[:rows].contiguous()
+    top_k = torch.tensor([0.0, 40.0], device="cuda").repeat(rows // 2 + 1)[:rows].contiguous()
     noise = S.gumbel_like(x, gen)
     hist = torch.randint(0, vocab, (rows, 24), generator=gen, device="cuda")
     appears = S.token_occurrence_mask(hist, vocab)
     suppress = torch.arange(rows, device="cuda") % 2 == 0
-    kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
-    results = {}
+    return x, top_k, top_p, noise, appears, suppress
+
+
+def hard_rows(torch, FS, vocab):
+    """Rows where the cutoffs are hard: logits quantised to 0.25 (many
+    ties), all equal, N(0, 100) with -inf columns, and a narrow quantised row,
+    each under every top-k in HARD_KK and top-p in HARD_PP. Each top-p is
+    moved down (by 3e-5 relative steps) until it lies more than TIE_MARGIN
+    from every cumulative mass of its top-k-filtered row (f64 on the host),
+    so the summation order cannot decide a cutoff; the mass of the whole
+    row is exempt where every finite value lies within 100 of the max (both
+    outcomes keep the same set there, as at top-p 1.0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    # N(0, 100) with -inf columns: wide enough that top-p 0.999 falls between
+    # cumulative masses more than TIE_MARGIN apart
+    kinds = [np.round(rng.normal(size=vocab) * 3 * 4) / 4, np.full(vocab, 0.5),
+             rng.normal(size=vocab) * 10, np.round(rng.normal(size=vocab) * 4) / 4]
+    kinds[2][rng.random(vocab) < 0.05] = -np.inf
+    rows, kks, pps = [], [], []
+    for k in HARD_KK:
+        for p in HARD_PP:
+            for kind in kinds:
+                rows.append(kind)
+                kks.append(k)
+                pps.append(p)
+    x = torch.tensor(np.stack(rows), dtype=torch.float32, device="cuda")
+    kk = torch.tensor(kks, device="cuda")
+    xk = FS.fused_filter_plain(x, kk, torch.zeros_like(kk), do_topp=False).double().cpu().numpy()
+    for r, p in enumerate(pps):
+        if p <= 0:
+            continue
+        v = xk[r][np.isfinite(xk[r])]
+        vals, counts = np.unique(v, return_counts=True)
+        e = np.exp(vals - vals.max()) * counts
+        cum = np.cumsum(e[::-1])[::-1] / e.sum()  # mass of {x >= vals[i]}
+        if vals.max() - vals.min() < 100:
+            cum = cum[1:]
+        for _ in range(200):
+            if cum.size == 0 or np.min(np.abs(cum - p)) > TIE_MARGIN * p:
+                break
+            p *= 1 - 3e-5
+        else:
+            raise SmokeError(f"hard row {r}: no top-p near {pps[r]} clears the tie margin")
+        pps[r] = p
+    return x, kk, torch.tensor(pps, device="cuda")
+
+
+def mid_gap_top_p(torch, FS, x, kk, top_p):
+    """Each row's top-p moved to the middle of the gap between the two
+    cumulative masses of its top-k-filtered row around it (f64, ties
+    grouped), so the kernel's and the plain version's summation orders
+    cannot decide its cutoff. Returns the moved top-p [rows] f32 and the
+    smallest half-gap relative to it."""
+    xk = FS.fused_filter_plain(x, kk, torch.zeros_like(top_p), do_topp=False)
+    v, _ = torch.sort(xk.double(), dim=-1, descending=True)
+    fin = torch.isfinite(v)
+    e = torch.where(fin, torch.exp(v - v[:, :1]), torch.zeros_like(v))
+    cum = torch.cumsum(e, dim=-1) / e.sum(dim=-1, keepdim=True)
+    end = fin.clone()
+    end[:, :-1] &= v[:, :-1] != v[:, 1:]
+    pp = top_p.double()[:, None]
+    lower = torch.where(end & (cum <= pp), cum, torch.zeros_like(cum)).amax(dim=-1)
+    upper = torch.where(end & (cum > pp), cum, torch.full_like(cum, float("inf"))).amin(dim=-1)
+    moved = torch.where(torch.isfinite(upper) & (top_p > 0), (lower + upper) / 2, top_p.double())
+    half = torch.where(torch.isfinite(upper) & (top_p > 0), (upper - lower) / 2 / moved,
+                       torch.full_like(moved, float("inf")))
+    return moved.float(), float(half.min())
+
+
+def prologue_plain(torch, x, appears, suppress, penalty, temperature, eos):
+    """sampler_plain's prologue (suppression, penalty, temperature) on x."""
+    x = x.clone()
+    x[suppress, eos] = float("-inf")
+    x = torch.where(appears, torch.where(x < 0, x * penalty, x / penalty), x)
+    return x * (1.0 / temperature)
+
+
+def check_sampler(torch, FS, S):
+    """K2/K3 (and K4's correctness) against their plain versions at every
+    row count in SAMPLER_ROWS, on hard rows, for determinism, Philox and
+    the independence of the cluster size; then device times at TIMED_ROWS.
+    Returns the K2/K3 and K4 entries and K4's launches in this phase."""
+    vocab, eos = 50257, 50256
+    k4_before = FS.LAUNCHES["fused_filter"]
+    worst = {"K2": 0.0, "K3": 0.0}
 
     def compare(name, got, want):
         check(torch.equal(got[0], want[0]), f"{name}: next differs from the plain version")
@@ -279,114 +385,178 @@ def check_sampler(torch, FS, S):
         if want[3] is not None:
             err = max(err, assert_close(torch, got[3], want[3], 1e-6, SAMPLER_RTOL,
                                         f"{name} eos_lp"))
-        return err
+        worst[name[:2]] = max(worst[name[:2]], err)
 
-    # K2 with injected noise, both filters and alt_prob
-    got = FS.fused_filter_sample(x, top_k, top_p, 7, gumbel_noise=noise)
-    want = FS.sampler_plain(x, kk, top_p, 7, do_topk=True, do_topp=True, want_alt_prob=True,
-                            gumbel_noise=noise)
-    err2 = compare("K2", (*got, None), want)
-    # K3 with injected noise: prologue + both filters
-    step_kw = dict(appears=appears, penalty=1.2, temperature=0.9, eos_token_id=eos,
-                   suppress_eos=suppress, want_eos_lp=True)
-    got = FS.fused_step_sample(x, top_k, top_p, 9, gumbel_noise=noise, **step_kw)
-    want = FS.sampler_plain(x, kk, top_p, 9, do_topk=True, do_topp=True, want_alt_prob=True,
-                            gumbel_noise=noise, appears=appears.view(torch.int8),
-                            penalty=1.2, temperature=0.9, eos_token_id=eos,
-                            suppress_eos=suppress.float(), want_eos_lp=True)
-    err3 = compare("K3", got, want)
-    # in-kernel Philox: every token lies in the plain filter's kept set
-    kept = torch.isfinite(S.top_k_top_p_filter_threshold(x, top_k, top_p, iters=FS.DEFAULT_ITERS))
-    for seed in (11, 12, 13):
-        nxt, _, _ = FS.fused_filter_sample(x, top_k, top_p, seed)
-        check(bool(kept[torch.arange(rows, device="cuda"), nxt.long()].all()),
-              "K2 with Philox sampled a filtered token")
-    say(f"K2/K3 [{rows}, {vocab}]: next/alt exact with injected noise; alt_prob/eos_lp max "
-        f"abs err {max(err2, err3):.3e} (rtol {SAMPLER_RTOL}); Philox draws inside the kept set")
-
-    # timing at the main path's flags: top-p only, Philox, no alt_prob
-    kk0 = FS.resolve_top_k(0, rows, vocab, "cuda")
-
-    def k2():
-        return FS.fused_filter_sample(x, 0, top_p, 5, do_topk=False, want_alt_prob=False)
-
-    ms2 = device_ms(torch, k2, kernel="sampler_kernel")
-    wall2 = time_ms(torch, k2)
-    plain2 = device_ms(torch, lambda: FS.sampler_plain(
-        x, kk0, top_p, 5, do_topk=False, do_topp=True, want_alt_prob=False), 5)
-    b2, by2 = sampler_bound(rows, vocab, prologue=False)
-    step_main = dict(appears=appears, penalty=1.2, eos_token_id=eos, suppress_eos=suppress,
-                     want_eos_lp=True)
-
-    def k3():
-        return FS.fused_step_sample(x, 0, top_p, 5, do_topk=False, want_alt_prob=False,
-                                    **step_main)
-
-    ms3 = device_ms(torch, k3, kernel="sampler_kernel")
-    wall3 = time_ms(torch, k3)
-    plain3 = device_ms(torch, lambda: FS.sampler_plain(
-        x, kk0, top_p, 5, do_topk=False, do_topp=True, want_alt_prob=False,
-        appears=appears.view(torch.int8), penalty=1.2, eos_token_id=eos,
-        suppress_eos=suppress.float(), want_eos_lp=True), 5)
-    b3, by3 = sampler_bound(rows, vocab, prologue=True)
-    say(f"K2 [{rows}, {vocab}] top-p (device ms): kernel {ms2:.4f}, plain {plain2:.4f}, bound "
-        f"{b2:.4f} ({by2}); wrapper wall {wall2:.4f}")
-    say(f"K3 [{rows}, {vocab}] top-p+prologue (device ms): kernel {ms3:.4f}, plain "
-        f"{plain3:.4f}, bound {b3:.4f} ({by3}); wrapper wall {wall3:.4f}")
-    results["fused_filter_sample"] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2,
-                                          bound_ms=b2, bound_by=by2, library_ms=None)
-    results["fused_step_sample"] = dict(max_abs_err=err3, ms=ms3, plain_ms=plain3,
-                                        bound_ms=b3, bound_by=by3, library_ms=None)
-    return results
-
-
-def check_filter(torch, FS, S):
-    """K4 at [72, 50257]: the filtered logits equal the plain version's
-    exactly (the same -inf pattern, kept values bit for bit) with the top-p
-    sweep and top-k 40 on alternate rows, and with each filter alone; the
-    kept set is S.top_k_top_p_filter_threshold's. Returns its numbers and
-    its launches in this phase (no decode path calls it)."""
-    rows, vocab = 72, 50257
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn(rows, vocab, generator=gen, device="cuda") * 3
-    top_p = torch.tensor(TOP_P_SWEEP * 8, device="cuda")
-    top_k = torch.tensor(([0.0, 40.0] * 36), device="cuda")
-    kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
-    before = FS.LAUNCHES["fused_filter"]
-    for do_topk, do_topp in ((True, True), (True, False), (False, True)):
-        got = FS.fused_filter(x, top_k, top_p, do_topk=do_topk, do_topp=do_topp)
-        want = FS.fused_filter_plain(x, kk, top_p, do_topk=do_topk, do_topp=do_topp)
+    def filter_exact(name, x, top_k, top_p, kk, **gates):
+        got = FS.fused_filter(x, top_k, top_p, **gates)
+        want = FS.fused_filter_plain(x, kk, top_p, **gates)
         torch.cuda.synchronize()
-        what = f"K4 top-k {do_topk} top-p {do_topp}"
         check(torch.equal(torch.isfinite(got), torch.isfinite(want)),
-              f"{what}: kept set differs from the plain version")
-        check(torch.equal(got, want), f"{what}: kept values differ from the plain version")
-        check(torch.equal(got[torch.isfinite(got)], x[torch.isfinite(got)]),
-              f"{what}: kept values are not the input's")
-        thr = S.top_k_top_p_filter_threshold(x, top_k if do_topk else 0,
-                                             top_p if do_topp else 0.0, iters=FS.DEFAULT_ITERS)
-        check(torch.equal(torch.isfinite(got), torch.isfinite(thr)),
-              f"{what}: kept set differs from top_k_top_p_filter_threshold")
+              f"{name}: kept set differs from the plain version")
+        check(torch.equal(got, want), f"{name}: kept values differ from the plain version")
+        return got
 
-    def k4():
-        return FS.fused_filter(x, top_k, top_p)
+    def step_kw(appears, suppress, penalty=1.2, temperature=0.9):
+        return dict(appears=appears, penalty=penalty, temperature=temperature, eos_token_id=eos,
+                    suppress_eos=suppress, want_eos_lp=True)
 
-    ms = device_ms(torch, k4, kernel="sampler_kernel")
-    wall = time_ms(torch, k4)
-    plain = device_ms(torch, lambda: FS.fused_filter_plain(x, kk, top_p), 5)
-    # bytes: the f32 logits read once and the filtered row written once, plus
-    # the per-row settings; operations per token: max, a top-k and a top-p
-    # cutoff by four-pass radix selects (12 each), the softmax (4)
-    b4, by4 = bound(2 * rows * vocab * 4 + rows * 8, rows * vocab * (1 + 12 + 12 + 4),
-                    F32_OPS_PER_S)
-    launches = FS.LAUNCHES["fused_filter"] - before
-    say(f"K4 [{rows}, {vocab}] top-p sweep + top-k 40 on alternate rows: filtered logits "
-        f"exactly the plain version's, alone and with each filter alone; kept set that of "
-        f"top_k_top_p_filter_threshold")
-    say(f"K4 [{rows}, {vocab}] (device ms): kernel {ms:.4f}, plain {plain:.4f}, bound "
-        f"{b4:.4f} ({by4}); wrapper wall {wall:.4f}; {launches} launches in this phase")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b4, bound_by=by4,
-                library_ms=None), launches
+    def plain_step(x, kk, top_p, seed, appears, suppress, noise, penalty=1.2, temperature=0.9):
+        return FS.sampler_plain(x, kk, top_p, seed, do_topk=True, do_topp=True,
+                                want_alt_prob=True, gumbel_noise=noise,
+                                appears=appears.view(torch.int8), penalty=penalty,
+                                temperature=temperature, eos_token_id=eos,
+                                suppress_eos=suppress.float(), want_eos_lp=True)
+
+    clusters, gaps = {}, []
+    for rows in SAMPLER_ROWS:
+        x, top_k, top_p, noise, appears, suppress = sampler_inputs(torch, S, rows, vocab, rows)
+        kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
+        clusters[rows] = FS.cluster_size(rows, vocab)
+        # the sweep's top-p, each moved off the cumulative masses of the row
+        # each kernel filters: after top-k, after the prologue, without top-k
+        pp_k, gap_k = mid_gap_top_p(torch, FS, x, kk, top_p)
+        pp_3, gap_3 = mid_gap_top_p(torch, FS, prologue_plain(torch, x, appears, suppress, 1.2,
+                                                              0.9, eos), kk, top_p)
+        pp_0, gap_0 = mid_gap_top_p(torch, FS, x, torch.zeros_like(kk), top_p)
+        gaps.append(min(gap_k, gap_3, gap_0))
+        # K2 and K3 with injected noise, both filters and alt_prob
+        got = FS.fused_filter_sample(x, top_k, pp_k, 7, gumbel_noise=noise)
+        compare(f"K2 rows {rows}", (*got, None), FS.sampler_plain(
+            x, kk, pp_k, 7, do_topk=True, do_topp=True, want_alt_prob=True, gumbel_noise=noise))
+        got = FS.fused_step_sample(x, top_k, pp_3, 9, gumbel_noise=noise,
+                                   **step_kw(appears, suppress))
+        compare(f"K3 rows {rows}", got, plain_step(x, kk, pp_3, 9, appears, suppress, noise))
+        # K4, exact; each filter alone too at the main path's 72 rows
+        gates = ([(True, True), (True, False), (False, True)] if rows == 72
+                 else [(True, True)])
+        for do_topk, do_topp in gates:
+            pp = pp_k if do_topk else pp_0
+            got = filter_exact(f"K4 rows {rows} top-k {do_topk} top-p {do_topp}", x, top_k,
+                               pp, kk, do_topk=do_topk, do_topp=do_topp)
+            if rows == 72:
+                thr = S.top_k_top_p_filter_threshold(
+                    x, top_k if do_topk else 0, pp if do_topp else 0.0,
+                    iters=FS.DEFAULT_ITERS)
+                check(torch.equal(torch.isfinite(got), torch.isfinite(thr)),
+                      f"K4 top-k {do_topk} top-p {do_topp}: kept set differs from "
+                      f"top_k_top_p_filter_threshold")
+        # Philox: every sampled token lies in the plain filter's kept set
+        kept = torch.isfinite(FS.fused_filter_plain(x, kk, pp_k))
+        for seed in ((11, 12, 13) if rows == 72 else (11,)):
+            nxt, alt, _ = FS.fused_filter_sample(x, top_k, pp_k, seed)
+            check(bool(kept[torch.arange(rows, device="cuda"), nxt.long()].all()),
+                  f"K2 rows {rows} with Philox sampled a filtered token")
+        # determinism: two launches on the same inputs give the same bits
+        for name, run in (
+                ("K2", lambda: FS.fused_filter_sample(x, top_k, top_p, 21)),
+                ("K3", lambda: FS.fused_step_sample(x, top_k, top_p, 21,
+                                                    **step_kw(appears, suppress)))):
+            a, b = run(), run()
+            check(all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+                      for u, v in zip(a, b) if u is not None),
+                  f"{name} rows {rows}: two launches gave different bits")
+        say(f"K2/K3/K4 [{rows}, {vocab}], cluster of {clusters[rows]} blocks per row: "
+            f"next/alt exact with injected noise, alt_prob/eos_lp within rtol {SAMPLER_RTOL}, "
+            f"K4 exact, Philox draws inside the kept set, two launches bit-identical (top-p "
+            f"sweep moved to mid-gap: nearest cumulative mass {gaps[-1]:.2e} relative away)")
+        if rows == 512:
+            # the cluster size decides nothing: the first 8 rows alone (another
+            # cluster size) give the same tokens with Philox
+            big = FS.fused_step_sample(x, top_k, top_p, 31, **step_kw(appears, suppress))
+            small = FS.fused_step_sample(x[:8].contiguous(), top_k[:8], top_p[:8], 31,
+                                         **step_kw(appears[:8].contiguous(), suppress[:8]))
+            check(torch.equal(big[0][:8], small[0]) and torch.equal(big[1][:8], small[1]),
+                  "K3 tokens depend on the cluster size")
+            assert_close(torch, small[2], big[2][:8], 1e-7, SAMPLER_RTOL,
+                         "K3 alt_prob across cluster sizes")
+            assert_close(torch, small[3], big[3][:8], 1e-6, SAMPLER_RTOL,
+                         "K3 eos_lp across cluster sizes")
+            say(f"K3 rows 0-7 of the 512-row batch (cluster {clusters[512]}) and alone "
+                f"(cluster {clusters[8]}): same next/alt with Philox, alt_prob/eos_lp within "
+                f"rtol {SAMPLER_RTOL}")
+
+    # hard rows: ties, an all-equal row, -inf columns, k in {1, 40, V}, p near 0 and 1
+    x, kk, top_p = hard_rows(torch, FS, vocab)
+    rows = x.shape[0]
+    noise = S.gumbel_like(x, torch.Generator(device="cuda").manual_seed(9))
+    got = FS.fused_filter_sample(x, kk, top_p, 3, gumbel_noise=noise)
+    compare("K2 hard rows", (*got, None), FS.sampler_plain(
+        x, kk, top_p, 3, do_topk=True, do_topp=True, want_alt_prob=True, gumbel_noise=noise))
+    appears = torch.zeros(rows, vocab, dtype=torch.bool, device="cuda")
+    no_gate = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    got = FS.fused_step_sample(x, kk, top_p, 3, gumbel_noise=noise,
+                               **step_kw(appears, no_gate, penalty=1.0, temperature=1.0))
+    compare("K3 hard rows", got, plain_step(x, kk, top_p, 3, appears, no_gate, noise, 1.0, 1.0))
+    kept = torch.isfinite(filter_exact("K4 hard rows", x, kk, top_p, kk))
+    nxt, _, _ = FS.fused_filter_sample(x, kk, top_p, 17)
+    check(bool(kept[torch.arange(rows, device="cuda"), nxt.long()].all()),
+          "K2 hard rows with Philox sampled a filtered token")
+    say(f"hard rows [{rows}, {vocab}] (0.25-quantised, all-equal, -inf columns, narrow; top-k "
+        f"{HARD_KK}, top-p {HARD_PP} kept {TIE_MARGIN} from every cumulative mass): K2/K3 "
+        f"next/alt exact, K4 exact, Philox inside the kept set")
+
+    # device times at the main path's flags: top-p only, Philox, no alt_prob
+    step_main = dict(penalty=1.2, eos_token_id=eos, want_eos_lp=True)
+    sweep = {"fused_filter_sample": {}, "fused_step_sample": {}, "fused_filter": {}}
+    results = {}
+    for rows in TIMED_ROWS:
+        clusters[rows] = FS.cluster_size(rows, vocab)
+        x, top_k, top_p, _, appears, suppress = sampler_inputs(torch, S, rows, vocab, rows)
+        kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
+        kk0 = FS.resolve_top_k(0, rows, vocab, "cuda")
+
+        def k2():
+            return FS.fused_filter_sample(x, 0, top_p, 5, do_topk=False, want_alt_prob=False)
+
+        def k3():
+            return FS.fused_step_sample(x, 0, top_p, 5, do_topk=False, want_alt_prob=False,
+                                        appears=appears, suppress_eos=suppress, **step_main)
+
+        def k4():
+            return FS.fused_filter(x, top_k, top_p)
+
+        timed = {"fused_filter_sample": (k2, sampler_bound(rows, vocab, prologue=False)),
+                 "fused_step_sample": (k3, sampler_bound(rows, vocab, prologue=True)),
+                 "fused_filter": (k4, filter_bound(rows, vocab))}
+        for name, (fn, (b_ms, b_by)) in timed.items():
+            ms = device_ms(torch, fn, kernel="sampler_kernel")
+            sweep[name][rows] = dict(ms=ms, bound_ms=b_ms, cluster=clusters[rows])
+            if rows == 72:
+                wall = time_ms(torch, fn)
+                if name == "fused_filter_sample":
+                    plain = device_ms(torch, lambda: FS.sampler_plain(
+                        x, kk0, top_p, 5, do_topk=False, do_topp=True, want_alt_prob=False), 5)
+                elif name == "fused_step_sample":
+                    plain = device_ms(torch, lambda: FS.sampler_plain(
+                        x, kk0, top_p, 5, do_topk=False, do_topp=True, want_alt_prob=False,
+                        appears=appears.view(torch.int8), penalty=1.2, eos_token_id=eos,
+                        suppress_eos=suppress.float(), want_eos_lp=True), 5)
+                else:
+                    plain = device_ms(torch, lambda: FS.fused_filter_plain(x, kk, top_p), 5)
+                results[name] = dict(max_abs_err=worst["K2"] if name == "fused_filter_sample"
+                                     else worst["K3"] if name == "fused_step_sample" else 0.0,
+                                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=None, cluster=clusters[rows], wall_ms=wall)
+        say(f"sampler [{rows}, {vocab}], cluster {clusters[rows]} (device ms, kernel / bound): "
+            + "; ".join(f"{k} {sweep[k][rows]['ms']:.4f} / {sweep[k][rows]['bound_ms']:.4f}"
+                        for k in sweep))
+    # a narrow row (N(0, 0.0625)): its whole range must spread over the buckets
+    x, _, top_p, _, _, _ = sampler_inputs(torch, S, 72, vocab, 72)
+    x = x / 12
+    narrow_ms = device_ms(torch, lambda: FS.fused_filter_sample(
+        x, 0, top_p, 5, do_topk=False, want_alt_prob=False), kernel="sampler_kernel")
+    results["fused_filter_sample"]["narrow_ms"] = narrow_ms
+    say(f"K2 top-p [72, {vocab}] on N(0, 0.0625) logits (device ms): kernel {narrow_ms:.4f}")
+    for name, label in (("fused_filter_sample", "K2 top-p"),
+                        ("fused_step_sample", "K3 top-p+prologue"),
+                        ("fused_filter", "K4 top-p sweep + top-k 40 on alternate rows")):
+        r = results[name]
+        say(f"{label} [72, {vocab}] (device ms): kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}); wrapper wall {r['wall_ms']:.4f}")
+        r["sweep"] = {str(k): v for k, v in sweep[name].items()}
+    launches = FS.LAUNCHES["fused_filter"] - k4_before
+    say(f"K4: {launches} launches in this phase (on no decode path)")
+    return results, launches
 
 
 # --- 4. the main path ----------------------------------------------------------------
@@ -711,9 +881,10 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["fused_attention", "fused_sampler"])
     say(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, both sources in parallel)")
-    for line in logs.get("fused_attention", "").splitlines():  # ptxas -v: registers, spills
-        if "ptxas" in line or "spill" in line:
-            say(f"  fused_attention.cu {line.strip()}")
+    for name in ("fused_attention", "fused_sampler"):  # ptxas -v: registers, spills
+        for line in logs.get(name, "").splitlines():
+            if "ptxas" in line or "spill" in line:
+                say(f"  {name}.cu {line.strip()}")
 
     def counters(reset: bool = False):
         if reset:
@@ -723,8 +894,7 @@ def main() -> int:
         return {**FA.LAUNCHES, **FS.LAUNCHES}
 
     k1 = check_attention(torch, FA)
-    k23 = check_sampler(torch, FS, S)
-    k4, k4_launches = check_filter(torch, FS, S)
+    k234, k4_launches = check_sampler(torch, FS, S)
     bundle = make_bundle(torch)
     t0 = time.perf_counter()
     main_launches, rates = main_path(torch, counters, bundle)
@@ -748,10 +918,11 @@ def main() -> int:
     sources = {"fused_attention": ("clipcap_tpu_torch/csrc/fused_attention.cu",
                                    "clipcap_tpu/ops/pallas/fused_attention.py:68", k1),
                "fused_filter_sample": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:255",
-                                       k23["fused_filter_sample"]),
+                                       k234["fused_filter_sample"]),
                "fused_step_sample": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:371",
-                                     k23["fused_step_sample"]),
-               "fused_filter": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:447", k4)}
+                                     k234["fused_step_sample"]),
+               "fused_filter": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:447",
+                                k234["fused_filter"])}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(paths[name].values()), launches_by_path=paths[name],
                     on_path=name != "fused_filter", **nums)

@@ -10,11 +10,15 @@ the repetition penalty and temperature); and `filt_kernel`, reached through
 filtered logits, masked = -inf; the kernel's FILTER output mode, which
 writes the row back instead of sampling: 29.0 MB at [72, 50257], ~8.6 us
 bound by bytes). The CUDA kernel is
-csrc/fused_sampler.cu: one 1024-thread block per row holds the f32 row in
-shared memory (201 KB at V=50257) and runs every bisection and both
-arg-max passes there, so the logits cross device memory once. That read
-(plus the int8 `appears` row for K3) bounds it on the H100: 14.5 MB at
-[72, 50257], ~4.3 us; the source's header says what the design does.
+csrc/fused_sampler.cu: each row is spread over a cluster of 1-8 blocks
+(`cluster_size`) that hold its slices in shared memory, so the logits
+cross device memory once; the top-k and top-p cutoffs come from a select
+(a value-bucket histogram, then the crossing bucket's tokens resolved
+exactly) whose value is replayed through the bisection's 28 steps (the
+cutoffs are the bisection's bit for bit), and one Gumbel top-2 pass runs
+over the kept tokens. That read (plus the int8 `appears` row for K3)
+bounds it on the H100: 14.5 MB at [72, 50257], ~4.3 us; the source's
+header says what the design does.
 
 The wrappers launch the kernel for CUDA tensors and take `sampler_plain`
 (`fused_filter_plain` for K4), the TPU kernel's math in PyTorch, only for
@@ -44,6 +48,47 @@ DEFAULT_ITERS = 28
 
 _TOPK, _TOPP, _ALT_PROB, _NOISE, _PENALTY, _SUPPRESS, _EOS_LP, _TEMPERATURE = (
     1, 2, 4, 8, 16, 32, 64, 128)
+
+_lib = None
+_max_vocab = 0
+
+
+def _library():
+    """The kernel's library with its entry points' ctypes signatures set
+    (once, at first use) and its vocabulary limit read."""
+    global _lib, _max_vocab
+    if _lib is None:
+        lib = _build.library("fused_sampler")
+        lib.clipcap_fused_sampler.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p])
+        lib.clipcap_fused_sampler.restype = ctypes.c_int
+        lib.clipcap_fused_filter.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.clipcap_fused_filter.restype = ctypes.c_int
+        lib.clipcap_sampler_cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.clipcap_sampler_cluster.restype = ctypes.c_int
+        lib.clipcap_sampler_max_vocab.argtypes = []
+        lib.clipcap_sampler_max_vocab.restype = ctypes.c_int
+        _max_vocab = lib.clipcap_sampler_max_vocab()
+        _lib = lib
+    return _lib
+
+
+def _check_vocab(vocab: int) -> None:
+    _library()
+    if vocab > _max_vocab:
+        raise ValueError(f"vocab {vocab} exceeds the {_max_vocab} tokens a cluster of blocks "
+                         f"holds in shared memory")
+
+
+def cluster_size(rows: int, vocab: int) -> int:
+    """Blocks per row (the thread block cluster's size) of a launch at
+    [rows, vocab]: the largest, up to 8, whose rows * C blocks all run at
+    once on the H100's 132 SMs (two per SM where shared memory allows),
+    else the smallest whose slice fits a block. Builds the kernel's library
+    if needed."""
+    return _library().clipcap_sampler_cluster(rows, vocab)
 
 
 def resolve_top_k(top_k, batch: int, vocab: int, device="cuda") -> torch.Tensor:
@@ -152,15 +197,8 @@ def _launch(counter: str, logits, kk, pp, seed, *, flags, iters, appears=None,
         _build.check_cuda_tensor("gumbel_noise", noise, (torch.float32,), (b, vocab))
     if eos_token_id is not None and not 0 <= eos_token_id < vocab:
         raise ValueError(f"eos_token_id {eos_token_id} outside the vocabulary")
-    lib = _build.library("fused_sampler")
-    max_vocab = lib.clipcap_sampler_max_vocab()
-    if vocab > max_vocab:
-        raise ValueError(f"vocab {vocab} exceeds the shared-memory row of {max_vocab}")
-    fn = lib.clipcap_fused_sampler
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint64,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _check_vocab(vocab)
+    fn = _library().clipcap_fused_sampler
     dev = logits.device
     nxt = torch.empty(b, dtype=torch.int32, device=dev)
     alt = torch.empty(b, dtype=torch.int32, device=dev)
@@ -308,13 +346,8 @@ def fused_filter(
     x = logits.float().contiguous()
     b, vocab = x.shape
     _build.check_cuda_tensor("logits", x, (torch.float32,))
-    lib = _build.library("fused_sampler")
-    if vocab > lib.clipcap_sampler_max_vocab():
-        raise ValueError(f"vocab {vocab} exceeds the shared-memory row of "
-                         f"{lib.clipcap_sampler_max_vocab()}")
-    fn = lib.clipcap_fused_filter
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    _check_vocab(vocab)
+    fn = _library().clipcap_fused_filter
     out = torch.empty_like(x)
     flags = (_TOPK if do_topk else 0) | (_TOPP if do_topp else 0)
     with torch.cuda.device(x.device):
