@@ -15,9 +15,10 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    block hands it) and takes the device time (torch.profiler) of the
    kernel, the plain version, and the one PyTorch library call that
    computes the same function where there is one (SDPA for attention),
-   beside the least time the card could take (the bound); K1 also L2-cold
-   and in bf16 at the main shape and at T=577; K2/K3/K4 at 1, 8, 64, 72
-   and 512 rows of V=50257 (every cluster size the launcher picks), on
+   beside the least time the card could take (the bound); K1 also at the
+   encoders' batches of 1 and 64 images, L2-cold, and in bf16 at the main
+   shape and at T=577; K2/K3/K4 at 1, 8, 9, 64, 72 and 512 rows of V=50257
+   (every cluster size the launcher picks, and each path's rows), on
    hard rows (ties, all equal, -inf columns, top-p near 0 and 1), for
    bit-identical repeats and Philox draws inside the kept set, and timed
    at 8, 64, 72 and 512 rows with the cluster size used;
@@ -31,7 +32,17 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    counters set to 0 just before and read just after; checks greedy
    requests against their solo generate and one sampler launch per
    dispatched step;
-6. prints one JSON line of kernels, the card line, and last
+6. drives the infer path (cli/infer.py) on the same model: writes it with
+   the port's checkpoint writer and a seeded OpenAI-layout CLIP ViT-B/32
+   state dict with torch.save, reads both back onto the card through the
+   port's loaders (every parameter equal to what was written), then runs
+   cli.infer.main on 64 seeded JPEGs by beam search (64 images x beam 5 x
+   67 tokens, one chunk of 320 rows) and on 8 by the no-beam top-p sweep,
+   with the launch counters set to 0 just before and read just after;
+   checks K1 per encoder call, K2 per decode step, one finite-scored JSON
+   entry per image, and the best beams of two images against the CPU;
+   times and profiles the beam call;
+7. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -202,6 +213,18 @@ def check_attention(torch, FA):
                 f"K1 packed qkv B=4 T={t} H={h} dh={dh} {dtype}")
             worst[name] = max(worst[name], err)
             say(f"K1 packed qkv views B=4 T={t} H={h} dh={dh} {name}: max abs err {err:.3e}")
+    # the batches the paths' ViT-B/32 encoders hand K1: one image (the no-beam
+    # infer call, both encoders) and 64 (the main path, a beam chunk)
+    atol, rtol = K1_TOL["float32"]
+    for b in (1, 64):
+        q, k, v = packed_qkv(torch, gen, b, 50, 12, 64, torch.float32)
+        got = FA.fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = assert_close(torch, got, FA.fused_attention_plain(
+            q.contiguous(), k.contiguous(), v.contiguous()), atol, rtol,
+            f"K1 packed qkv B={b} T=50 H=12 dh=64 float32")
+        worst["float32"] = max(worst["float32"], err)
+        say(f"K1 packed qkv views B={b} T=50 H=12 dh=64 float32: max abs err {err:.3e}")
 
     def sdpa(q, k, v):
         return lambda: F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)))
@@ -271,7 +294,9 @@ def filter_bound(rows: int, vocab: int):
                  F32_OPS_PER_S)
 
 
-SAMPLER_ROWS = [1, 8, 64, 72, 512]  # every cluster size the launcher picks at V=50257
+# every cluster size the launcher picks at V=50257, and the rows each path
+# hands K2: the no-beam infer call's 9, the main path's 72
+SAMPLER_ROWS = [1, 8, 9, 64, 72, 512]
 TIMED_ROWS = [8, 64, 72, 512]
 HARD_KK = [1.0, 40.0, 50257.0]
 HARD_PP = [0.0, 1e-4, 0.5, 0.999, 1.0]
@@ -823,12 +848,322 @@ def serving_path(torch, counters, bundle):
     return launches, rates
 
 
-def profile_call(torch, label: str, run, wall_ms: float) -> None:
+# --- 6. the infer path ---------------------------------------------------------------
+
+INFER_IMAGES, NOBEAM_IMAGES, BEAM, BEAM_NEW, STOP = 64, 8, 5, 67, 13  # 13: GPT-2's "."
+CLIP_MERGES = [("c", "a"), ("ca", "t</w>"), ("t", "h"), ("th", "e</w>"), ("a", "n")]
+# the CLIP ViT-B/32 scorer's text tower (OpenAI CLIP)
+CLIP_TEXT = dict(vocab_size=49408, context_length=77, width=512, layers=12, output_dim=512)
+
+
+def write_gpt2_vocab(folder: Path) -> None:
+    """A byte-level BPE vocabulary of GPT-2's size (50257): the 256 byte
+    symbols, 50000 two-symbol merges and <|endoftext|> last, so "." is id 13
+    and <|endoftext|> 50256, as in GPT-2's own files."""
+    from clipcap_tpu_torch.tokenizers.bpe import bytes_to_unicode
+
+    base = list(bytes_to_unicode().values())
+    merges = [(a, b) for a in base for b in base][:50257 - len(base) - 1]
+    vocab = {t: i for i, t in enumerate(base + [a + b for a, b in merges] + ["<|endoftext|>"])}
+    check(len(vocab) == 50257 and vocab["."] == STOP, "synthetic GPT-2 vocabulary malformed")
+    folder.mkdir(parents=True, exist_ok=True)
+    (folder / "vocab.json").write_text(json.dumps(vocab))
+    (folder / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+
+
+def clip_openai_state_dict(torch, vit_cfg, seed: int) -> dict:
+    """A seeded OpenAI-layout CLIP state dict (CPU tensors): the ViT-B/32
+    image tower and CLIP_TEXT's text tower, with the key names and shapes
+    that clip_vit_from_openai_state_dict / clip_text_from_openai_state_dict
+    read. Drawn on the card, N(0, 0.02) weights and small biases."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape, s=0.02):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).cpu()
+
+    def blocks(prefix, d, n):
+        out = {}
+        for i in range(n):
+            p = f"{prefix}transformer.resblocks.{i}."
+            out.update({p + "ln_1.weight": 1 + w(d), p + "ln_1.bias": w(d),
+                        p + "attn.in_proj_weight": w(3 * d, d), p + "attn.in_proj_bias": w(3 * d),
+                        p + "attn.out_proj.weight": w(d, d), p + "attn.out_proj.bias": w(d),
+                        p + "ln_2.weight": 1 + w(d), p + "ln_2.bias": w(d),
+                        p + "mlp.c_fc.weight": w(4 * d, d), p + "mlp.c_fc.bias": w(4 * d),
+                        p + "mlp.c_proj.weight": w(d, 4 * d), p + "mlp.c_proj.bias": w(d)})
+        return out
+
+    d, pch, t = vit_cfg.width, vit_cfg.patch_size, CLIP_TEXT["width"]
+    sd = {"visual.conv1.weight": w(d, 3, pch, pch), "visual.class_embedding": w(d, s=d ** -0.5),
+          "visual.positional_embedding": w(vit_cfg.seq_len, d, s=d ** -0.5),
+          "visual.ln_pre.weight": 1 + w(d), "visual.ln_pre.bias": w(d),
+          "visual.ln_post.weight": 1 + w(d), "visual.ln_post.bias": w(d),
+          "visual.proj": w(d, vit_cfg.output_dim, s=d ** -0.5),
+          "token_embedding.weight": w(CLIP_TEXT["vocab_size"], t),
+          "positional_embedding": w(CLIP_TEXT["context_length"], t, s=0.01),
+          "ln_final.weight": 1 + w(t), "ln_final.bias": w(t),
+          "text_projection": w(t, CLIP_TEXT["output_dim"], s=t ** -0.5)}
+    sd.update(blocks("visual.", d, vit_cfg.layers))
+    sd.update(blocks("", t, CLIP_TEXT["layers"]))
+    return sd
+
+
+def write_jpegs(folder: Path, n: int, seed: int) -> None:
+    """n seeded JPEGs of several sizes and aspect ratios (smooth colour
+    fields with noise, so the encoder compresses them as it would photos)."""
+    import numpy as np
+    from PIL import Image
+
+    folder.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        w, h = int(rng.integers(200, 400)), int(rng.integers(200, 400))
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = rng.random(3) * 255 * (0.5 + 0.5 * np.sin(xx / w * 6 + yy / h * 3))[..., None]
+        img = np.clip(base + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(folder / f"img{i:03d}.jpg", quality=90)
+
+
+def traced_beam(torch, lm, prompt, device: str):
+    """decode/beam.py's beam_search_batched with each step's selection
+    recorded: every call of its _topk_iter takes one pick more than asked
+    (the first picks do not change), so each step also gives the gap
+    between the beam-th and (beam+1)-th best candidate. Returns (the
+    result, each step's selected flat indices [N, beam], gaps [N, steps])."""
+    from clipcap_tpu_torch.decode import beam as B
+
+    real, picks = B._topk_iter, []
+
+    def topk_and_next(x, k):
+        vals, idx = real(x, k + 1)
+        picks.append((idx[:, :k], vals[:, k - 1] - vals[:, k]))
+        return vals[:, :k], idx[:, :k]
+
+    B._topk_iter = topk_and_next
+    try:
+        out = B.beam_search_batched(lm, prompt, beam_size=BEAM, max_new_tokens=BEAM_NEW,
+                                    stop_token_id=STOP, device=device)
+    finally:
+        B._topk_iter = real
+    return out, [sel for sel, _ in picks], torch.stack([gap for _, gap in picks], 1)
+
+
+def check_beam_vs_cpu(torch, bundle, prompt, card_out, card_sel, n_check: int = 2):
+    """The card's best beams of the first n_check images against the port
+    on the CPU. A best beam may differ only where the CPU's selection is a
+    near-tie: from the first step at which the card's selections `card_sel`
+    (traced_beam's, on the same batch of images as card_out) and the CPU's
+    differ, the CPU's gap there between the beam-th and (beam+1)-th
+    normalised candidates must be below FLIP_GAP (or, with the same
+    selections throughout, the gap between the two best final scores).
+    Returns the number of images with such a flip and the CPU seconds."""
+    t0 = time.perf_counter()
+    cpu_out, cpu_sel, cpu_gaps = traced_beam(torch, copy.deepcopy(bundle.lm).cpu(),
+                                             prompt[:n_check].cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def best(out, i):
+        b = int(out["scores"][i].argmax())
+        return out["tokens"][i, b, : int(out["seq_lengths"][i, b])].tolist()
+
+    flips = 0
+    for i in range(n_check):
+        if best(card_out, i) == best(cpu_out, i):
+            continue
+        steps = [s for s, (a, b) in enumerate(zip(card_sel, cpu_sel))
+                 if not torch.equal(a[i].cpu(), b[i])]
+        if steps:
+            gap, where = float(cpu_gaps[i, steps[0]]), f"step {steps[0]}"
+        else:
+            top2 = cpu_out["scores"][i].topk(2).values
+            gap, where = float(top2[0] - top2[1]), "the final ordering"
+        check(gap < FLIP_GAP, f"beam image {i}: best beam differs from the CPU at {where}, "
+              f"where the CPU's gap is {gap:.3e} (>= {FLIP_GAP})")
+        flips += 1
+    say(f"(f) beam check: the best beams of images 0-{n_check - 1} ({prompt.shape[0]}-image "
+        f"batch on the card) against the port on the CPU: near-tie flips {flips}; smallest "
+        f"CPU selection gap {float(cpu_gaps.min()):.3e}")
+    return flips, cpu_s
+
+
+def infer_path(torch, counters, bundle, card: str):
+    """(f) weights in, captions out, at full width: the bundle is written by
+    the port's checkpoint writer and an OpenAI-layout CLIP ViT-B/32 state
+    dict by torch.save, both read back by the port's loaders onto the card
+    and held against what was written; then cli.infer.main captions a
+    folder of 64 seeded JPEGs by beam search (64 images x beam 5 x 67 new
+    tokens, one chunk of 320 rows) and 8 of them by the no-beam top-p
+    sweep, with a synthetic 50257-entry GPT-2 vocabulary and a short CLIP
+    merges file. The launch counters are set to 0 just before these two
+    runs and read just after. Then the beam call again, traced once as the
+    warm-up, then timed and profiled, its best beams held against the CPU,
+    and a timed no-beam image call."""
+    import contextlib
+    import math
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from clipcap_tpu_torch.cli import infer as infer_cli
+    from clipcap_tpu_torch.cli.loading import load_captioner, load_clip_towers
+    from clipcap_tpu_torch.core.config import CLIPTextConfig
+    from clipcap_tpu_torch.decode.beam import beam_search_batched, best_beam_texts
+    from clipcap_tpu_torch.eval.clip_scoring import ClipScoring
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+    from clipcap_tpu_torch.tokenizers import create_tokenizer
+    from clipcap_tpu_torch.tools import import_weights as W
+    from clipcap_tpu_torch.train.checkpoints import save_checkpoint
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "smoke_infer"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    vit_cfg = bundle.vit_cfg
+    try:
+        # write, then load back through the port's loaders
+        t0 = time.perf_counter()
+        save_checkpoint(str(work / "ckpt"), bundle.model, bundle.cap_cfg, bundle.lm_cfg)
+        clip_sd = clip_openai_state_dict(torch, vit_cfg, seed=11)
+        torch.save(clip_sd, work / "clip.pt")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model, cap_cfg, lm_cfg, loaded_vit = load_captioner(str(work / "ckpt"), device="cuda")
+        visual, text = load_clip_towers("ViT-B/32", str(work / "clip.pt"), device="cuda")
+        load_s = time.perf_counter() - t0
+        want = bundle.model.state_dict()
+        for name, p in model.state_dict().items():
+            check(p.is_cuda and torch.equal(p, want[name]), f"loaded captioner {name} differs")
+        for mod, conv in ((visual, W.clip_vit_from_openai_state_dict(clip_sd, vit_cfg)),
+                          (text, W.clip_text_from_openai_state_dict(clip_sd, text.cfg))):
+            for name, p in mod.state_dict().items():
+                check(p.is_cuda and torch.equal(p.cpu(), torch.from_numpy(np.array(conv[name]))),
+                      f"loaded CLIP {name} differs from the written state dict")
+        check(loaded_vit == vit_cfg and cap_cfg == bundle.cap_cfg and lm_cfg == bundle.lm_cfg
+              and text.cfg == CLIPTextConfig(**CLIP_TEXT, heads=CLIP_TEXT["width"] // 64),
+              "loaded configs differ from the written ones")
+        del want
+        say(f"(f) loaders: checkpoint ({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+            f"params) and OpenAI-layout CLIP ViT-B/32 ({sum(p.numel() for p in visual.parameters()) / 1e6:.1f}M"
+            f" + text {sum(p.numel() for p in text.parameters()) / 1e6:.1f}M) written in "
+            f"{write_s:.1f} s, read back onto the card in {load_s:.1f} s; every parameter on the "
+            f"card and equal to what was written")
+
+        # the infer path, its launches counted
+        write_gpt2_vocab(work / "vocab")
+        (work / "clip_merges.txt").write_text(
+            "#version: 0.2\n" + "\n".join(" ".join(m) for m in CLIP_MERGES) + "\n")
+        write_jpegs(work / "images", INFER_IMAGES, seed=13)
+        args = ["--checkpoint_path", str(work / "ckpt"),
+                "--tokenizer_vocab_dir", str(work / "vocab"),
+                "--folder_path", str(work / "images"), "--clip_model", "ViT-B/32",
+                "--clip_checkpoint", str(work / "clip.pt"),
+                "--clip_merges", str(work / "clip_merges.txt"), "--device", "cuda"]
+        scoring = ClipScoring(visual, text, None)
+        pixels = []
+        for f in sorted((work / "images").glob("*.jpg")):
+            with Image.open(f) as image:
+                pixels.append(scoring.preprocess_image(image))
+        pixels = np.stack(pixels)
+        loaded = CaptionerBundle(model, cap_cfg, lm_cfg,
+                                 create_tokenizer("gpt2", str(work / "vocab")),
+                                 vit_cfg=loaded_vit, device="cuda")
+
+        def run(beam, n_img, prefix):
+            extra = [] if beam else ["--no_beam", "--total_samples", str(n_img)]
+            return infer_cli.main(args + extra + ["--out_filename_prefix", str(work / prefix)])
+        del clip_sd
+        torch.cuda.synchronize()
+        counters(reset=True)
+        runs = {}
+        for name, beam, n_img in (("beam", True, INFER_IMAGES),
+                                  ("no_beam", False, NOBEAM_IMAGES)):
+            before = counters()
+            t0 = time.perf_counter()
+            with open(work / f"{name}_stdout.txt", "w") as log, contextlib.redirect_stdout(log):
+                data = run(beam, n_img, name)
+            torch.cuda.synchronize()
+            after = counters()
+            runs[name] = (data, time.perf_counter() - t0,
+                          {k: after[k] - before[k] for k in after}, n_img)
+        launches = counters()
+
+        for name, (data, secs, rise, n_img) in runs.items():
+            written = json.loads((work / f"{name}_shutterstock.json").read_text())
+            check(len(data) == n_img and written == json.loads(json.dumps(data)),
+                  f"({name}) the JSON holds {len(written)} entries, want {n_img}")
+            check(all(math.isfinite(v) for e in data.values() for v in e["scores"].values()),
+                  f"({name}) a score is not finite")
+            check(all(len(e["generated_captions"]) == 1 for e in data.values()),
+                  f"({name}) not one caption per image")
+            chunks = math.ceil(n_img / 64)
+            want_k1 = vit_cfg.layers * (chunks if name == "beam" else 2 * n_img)
+            want_k2 = 0 if name == "beam" else 75 * n_img  # NoBeamCaptionSampler: 75 steps
+            check(rise["fused_attention"] == want_k1,
+                  f"({name}) K1 launched {rise['fused_attention']} times, want {want_k1}")
+            check(rise["fused_filter_sample"] == want_k2,
+                  f"({name}) K2 launched {rise['fused_filter_sample']} times, want {want_k2}")
+            first = next(iter(data.values()))
+            say(f"(f) cli.infer.main {name}: "
+                f"{n_img} images in {secs:.1f} s (loading included), one JSON entry and finite "
+                f"scores per image; K1 +{rise['fused_attention']}, K2 +"
+                f"{rise['fused_filter_sample']}; first caption [{first['generated_captions'][0][:40]!r}]")
+
+        # the beam call alone: 64 images x beam 5 x 67 tokens, one chunk of 320 rows
+        with torch.no_grad():
+            prompt = loaded.prefix_from_pixels(torch.from_numpy(pixels))
+
+        def beam_call():
+            return beam_search_batched(loaded.lm_decode, prompt, beam_size=BEAM,
+                                       max_new_tokens=BEAM_NEW, stop_token_id=STOP,
+                                       device="cuda")
+
+        # warm-up: the same call with each step's selection recorded
+        traced, card_sel, _ = traced_beam(torch, loaded.lm_decode, prompt, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = beam_call()
+        texts = best_beam_texts(out, loaded.tokenizer)
+        beam_s = time.perf_counter() - t0
+        check(len(texts) == INFER_IMAGES and bool(torch.isfinite(out["scores"]).all()),
+              "beam call: wrong number of captions or non-finite scores")
+        check(torch.equal(traced["tokens"], out["tokens"]),
+              "the traced beam call on the card gave other tokens than the timed one")
+        flips, cpu_s = check_beam_vs_cpu(torch, loaded, prompt, out, card_sel)
+        # one no-beam image call (the sweep's 9 captions), as the infer path makes it
+        infer_cli.caption_pixels(loaded, scoring, pixels[:1], use_beam_search=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer_cli.caption_pixels(loaded, scoring, pixels[1:2], use_beam_search=False)
+        torch.cuda.synchronize()
+        nobeam_s = time.perf_counter() - t0
+        rates = dict(beam_captions_per_s=INFER_IMAGES / beam_s, beam_call_s=beam_s,
+                     nobeam_image_call_s=nobeam_s,
+                     nobeam_captions_per_s=len(TOP_P_SWEEP) / nobeam_s, beam_flips=flips)
+        say(f"(f) on {card}: beam {INFER_IMAGES} images x beam {BEAM} x {BEAM_NEW} tokens "
+            f"({INFER_IMAGES * BEAM} rows): {beam_s * 1e3:.1f} ms = {rates['beam_captions_per_s']:.2f} captions/s; "
+            f"no-beam image call (9 top-p rows x 75 steps, scorer included): "
+            f"{nobeam_s * 1e3:.1f} ms = {rates['nobeam_captions_per_s']:.2f} captions/s; "
+            f"CPU comparison {cpu_s:.1f} s")
+        prof = profile_call(torch, "(f) beam", beam_call, beam_s * 1e3)
+        rates.update(busy_share=prof["busy_ms"] / prof["wall_ms"],
+                     launches_per_step=prof["launches"] / BEAM_NEW)
+        say(f"(f) beam call on {card}: {prof['launches'] / BEAM_NEW:.1f} kernel launches per "
+            f"beam step ({prof['launches']} in {BEAM_NEW} steps and the prefill)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"infer phase (f): {time.perf_counter() - t_phase:.1f} s")
+    return launches, rates
+
+
+def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     """Where the time of one call goes: the device time of each kernel
     (torch.profiler, CUPTI), summed, as a share of the wall time of the same
     profiled call, and beside `wall_ms`, the wall of an earlier unprofiled
     call of the same work (the profiler slows the host side). Raises if the
-    profiler recorded no kernel."""
+    profiler recorded no kernel. Returns the launches, the busy ms and the
+    profiled call's wall ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -850,6 +1185,7 @@ def profile_call(torch, label: str, run, wall_ms: float) -> None:
         f"{100 * busy_ms / prof_wall_ms:.1f}% of this call's {prof_wall_ms:.1f} ms wall under "
         f"the profiler ({100 * busy_ms / wall_ms:.1f}% of the {wall_ms:.1f} ms wall of the "
         f"unprofiled call {label}); top: {top}")
+    return dict(launches=launches, busy_ms=busy_ms, wall_ms=prof_wall_ms)
 
 
 def main() -> int:
@@ -902,10 +1238,13 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_launches, serve_rates = serving_path(torch, counters, bundle)
     say(f"serving phase (e): {time.perf_counter() - t0:.1f} s")
+    infer_launches, infer_rates = infer_path(torch, counters, bundle, card)
     # each kernel that a path runs was launched there (K4 has no path)
-    paths = {"fused_attention": {"main": main_launches["fused_attention"]},
+    paths = {"fused_attention": {"main": main_launches["fused_attention"],
+                                 "infer": infer_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
-                                     "serving": serve_launches["fused_filter_sample"]},
+                                     "serving": serve_launches["fused_filter_sample"],
+                                     "infer": infer_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
@@ -930,6 +1269,7 @@ def main() -> int:
     say(f"main path on {card}: {rates['images_per_s']:.1f} images/s (ViT-B/32 encode, B=64), "
         f"{rates['captions_per_s']:.2f} captions/s (NoBeam sampler, 72 rows)")
     say(f"serving on {card}: " + json.dumps(serve_rates))
+    say(f"infer on {card}: " + json.dumps(infer_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (cli/serve.serve_shard so far)."""
+"""Command-line entry points of the port: folder inference (cli/infer.py),
+the batch caption server (cli/serve.py) and their loaders (cli/loading.py)."""

@@ -1,0 +1,237 @@
+"""Folder inference demo (port of clipcap_tpu/cli/infer.py; the reference's
+shutterstock demo, inference.py:401-558).
+
+For a folder of jpg (+ json with `src`/`alt` metadata): encode each image
+with the captioner's visual tower, map it to the prefix, caption it by beam
+search (default) or the no-beam top-p sweep, score the generated captions
+against the original text (BLEU, METEOR, ROUGE-L, CIDEr, SPICE) and write
+`{prefix}_shutterstock.json`.
+
+    python -m clipcap_tpu_torch.cli.infer --checkpoint_path CKPT \\
+        --tokenizer_vocab_dir GPT2_VOCAB --folder_path IMAGES \\
+        --clip_checkpoint CLIP.pt --clip_merges bpe_simple_vocab_16e6.txt.gz
+
+CKPT is a directory of clipcap_config.json and consolidated.npz
+(train/checkpoints.py). `folder_demo_pixels` is the part below the file
+reading (pixels in, captions and scores out), callable without PIL. All of
+it runs on the bundle's device, the card unless `--device cpu`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+DEFAULT_TOP_P = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md item {item})")
+
+
+def _prompt(bundle, prefix_embed: torch.Tensor, text_prefix: Optional[str]) -> torch.Tensor:
+    """The prefix embeddings, followed by the embedded text prefix if any."""
+    if text_prefix is None:
+        return prefix_embed
+    toks = torch.tensor([bundle.tokenizer.encode_text(text_prefix)] * prefix_embed.shape[0],
+                        device=prefix_embed.device)
+    return torch.cat([prefix_embed, bundle.embed_text(toks).to(prefix_embed.dtype)], dim=1)
+
+
+def _captions_from_pixels(bundle, clip_scoring, image_tensor, number_to_generate: int,
+                          text_prefix: Optional[str], use_beam_search: bool,
+                          **generation_kwargs):
+    """demo_generate_captions after the preprocessing: one image's
+    [3, S, S] pixels -> (captions, the scorer's image features)."""
+    from ..decode.beam import beam_search, best_beam_text
+    from ..eval.samplers import NoBeamCaptionSampler
+
+    pixels = torch.as_tensor(np.asarray(image_tensor))[None]
+    # the captioner's own visual encoder makes the prefix features
+    visual_feats = bundle.encode_image(pixels)
+    prompt = _prompt(bundle, bundle.project_prefix(visual_feats), text_prefix)
+    if use_beam_search:
+        out = beam_search(bundle.lm_decode, prompt,
+                          beam_size=generation_kwargs.get("beam_size", 5),
+                          max_new_tokens=generation_kwargs.get("entry_length", 67),
+                          stop_token_id=bundle.tokenizer.encode_text(".")[0],
+                          device=bundle.device)
+        captions = [best_beam_text(out, bundle.tokenizer)]
+    else:
+        sampler = NoBeamCaptionSampler(
+            top_p_values=generation_kwargs.get("top_p_values", DEFAULT_TOP_P),
+            device=bundle.device)
+        captions = sampler.generate_captions(bundle, prompt, visual_feats, None)
+    captions = captions[:number_to_generate] if number_to_generate else captions
+    if text_prefix is not None:
+        captions = [text_prefix + c for c in captions]
+    return captions, clip_scoring.embed_image(image_tensor)
+
+
+def demo_generate_captions(bundle, clip_scoring, image, number_to_generate: int = 1,
+                           text_prefix: Optional[str] = None, use_beam_search: bool = False,
+                           draft_bundle=None, **generation_kwargs):
+    """Reference inference.py:295-331: preprocess -> encode -> project ->
+    beam or no-beam. Returns (captions, the scorer's image features)."""
+    if draft_bundle is not None:
+        raise _not_ported("speculative decoding (a draft bundle)", 10)
+    return _captions_from_pixels(bundle, clip_scoring, clip_scoring.preprocess_image(image),
+                                 number_to_generate, text_prefix, use_beam_search,
+                                 **generation_kwargs)
+
+
+def caption_pixels(bundle, clip_scoring, pixels, number_to_generate: int = 1,
+                   text_prefix: Optional[str] = None, use_beam_search: bool = True,
+                   **generation_kwargs) -> List[List[str]]:
+    """Captions for each of N preprocessed images ([N, 3, S, S]).
+
+    Beam: images x beams in one beam_search_batched call per chunk of
+    `beam_image_batch` images (default 64, which bounds the memory of a
+    call and changes no token); each image gets its best beam, as the JAX
+    folder demo gives it (no text prefix prepended). No-beam: image by
+    image through demo_generate_captions' path, the scorer's encoder
+    included."""
+    out: List[List[str]] = []
+    if use_beam_search:
+        from ..decode.beam import beam_search_batched, best_beam_texts
+
+        pixels = torch.as_tensor(np.asarray(pixels))
+        chunk = int(generation_kwargs.get("beam_image_batch", 64))
+        for lo in range(0, pixels.shape[0], chunk):
+            prompt = _prompt(bundle, bundle.prefix_from_pixels(pixels[lo:lo + chunk]), text_prefix)
+            res = beam_search_batched(
+                bundle.lm_decode, prompt, beam_size=generation_kwargs.get("beam_size", 5),
+                max_new_tokens=generation_kwargs.get("entry_length", 67),
+                stop_token_id=bundle.tokenizer.encode_text(".")[0], device=bundle.device)
+            out.extend([t] for t in best_beam_texts(res, bundle.tokenizer))
+        return out
+    for image_tensor in pixels:
+        captions, _ = _captions_from_pixels(bundle, clip_scoring, image_tensor,
+                                            number_to_generate, text_prefix, False,
+                                            **generation_kwargs)
+        out.append(captions)
+    return out
+
+
+def folder_demo_pixels(bundle, clip_scoring, pixels, names: Sequence[str], metadata=None,
+                       out_filename_prefix: str = "demo_inference", number_to_generate: int = 1,
+                       text_prefix: Optional[str] = None, use_beam_search: bool = True,
+                       draft_bundle=None, **generation_kwargs) -> dict:
+    """folder_demo below the file reading: preprocessed pixels [N, 3, S, S],
+    one name (the image's path) and one metadata dict each -> captions,
+    per-image and corpus scores of the captions against each metadata's
+    `alt` text, written to `{out_filename_prefix}_shutterstock.json`."""
+    from ..eval.scoring import generate_scores_full
+
+    if draft_bundle is not None:
+        raise _not_ported("speculative decoding (a draft bundle)", 10)
+    metadata = list(metadata) if metadata is not None else [{} for _ in names]
+    all_captions = caption_pixels(bundle, clip_scoring, pixels,
+                                  number_to_generate=number_to_generate,
+                                  text_prefix=text_prefix, use_beam_search=use_beam_search,
+                                  **generation_kwargs)
+    sample_data = {}
+    scoring_gts, scoring_res, image_id_to_url = {}, {}, {}
+    for image_id, (name, meta, captions) in enumerate(zip(names, metadata, all_captions)):
+        print(name)
+        print(captions)
+        url = meta.get("src", str(name))
+        original_caption = meta.get("alt", "")
+        sample_data[url] = {"original_caption": original_caption,
+                            "generated_captions": captions}
+        scoring_res[image_id] = [{"caption": original_caption}]
+        scoring_gts[image_id] = [{"caption": c} for c in captions]
+        image_id_to_url[image_id] = url
+
+    scores, img_scores = generate_scores_full(scoring_gts, scoring_res)
+    print("Scores")
+    print(scores)
+    for img_id, s in img_scores.items():
+        sample_data[image_id_to_url[img_id]]["scores"] = s
+    out_path = f"{out_filename_prefix}_shutterstock.json"
+    with open(out_path, "w+") as f:
+        json.dump(sample_data, f)
+    print(f"wrote {out_path}")
+    return sample_data
+
+
+def folder_demo(bundle, clip_scoring, folder_path: str,
+                out_filename_prefix: str = "demo_inference", total_samples: int = 100,
+                number_to_generate: int = 1, text_prefix: Optional[str] = None,
+                use_beam_search: bool = True, draft_bundle=None, **generation_kwargs) -> dict:
+    """Caption and score the first `total_samples` jpgs of a folder (sorted
+    by name), each with its optional same-named json metadata."""
+    from PIL import Image
+
+    files = sorted(Path(folder_path).glob("*.jpg"))[:total_samples]
+    pixels, metadata = [], []
+    for image_file in files:
+        with Image.open(image_file) as image:
+            pixels.append(clip_scoring.preprocess_image(image.convert("RGB")))
+        meta_file = image_file.with_suffix(".json")
+        metadata.append(json.loads(meta_file.read_text()) if meta_file.exists() else {})
+    size = clip_scoring.vit_cfg.image_size
+    pixels = np.stack(pixels) if pixels else np.zeros((0, 3, size, size), np.float32)
+    return folder_demo_pixels(bundle, clip_scoring, pixels, [str(f) for f in files], metadata,
+                              out_filename_prefix=out_filename_prefix,
+                              number_to_generate=number_to_generate, text_prefix=text_prefix,
+                              use_beam_search=use_beam_search, draft_bundle=draft_bundle,
+                              **generation_kwargs)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="caption and score a folder of jpgs")
+    p.add_argument("--checkpoint_path", required=True,
+                   help="directory of clipcap_config.json and consolidated.npz")
+    p.add_argument("--tokenizer_vocab_dir", required=True)
+    p.add_argument("--folder_path", required=True, help="folder of jpg(+json)")
+    p.add_argument("--clip_model", default="ViT-B/32")
+    p.add_argument("--clip_checkpoint", required=True)
+    p.add_argument("--clip_merges", required=True)
+    p.add_argument("--out_filename_prefix", default="demo_inference")
+    p.add_argument("--total_samples", type=int, default=100)
+    p.add_argument("--number_to_generate", type=int, default=1)
+    p.add_argument("--text_prefix", default=None)
+    p.add_argument("--no_beam", action="store_true")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="model-axis size for tensor-parallel decode (not ported: must be 1)")
+    p.add_argument("--speculative_draft_checkpoint", default=None,
+                   help="draft captioner for speculative decoding (not ported)")
+    p.add_argument("--int8_decode", action="store_true",
+                   help="int8 weight-streaming decode (not ported)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    # options of the JAX CLI that the port does not have yet: refuse, never ignore
+    if args.tensor_parallel > 1:
+        raise _not_ported("--tensor_parallel > 1", 12)
+    if args.speculative_draft_checkpoint:
+        raise _not_ported("--speculative_draft_checkpoint", 10)
+    if args.int8_decode:
+        raise _not_ported("--int8_decode", 8)
+
+    from ..eval.clip_scoring import ClipScoring
+    from .loading import load_captioner_bundle, load_clip_ranker
+
+    bundle = load_captioner_bundle(args.checkpoint_path, args.tokenizer_vocab_dir,
+                                   device=args.device)
+    ranker = load_clip_ranker(args.clip_model, args.clip_checkpoint, args.clip_merges,
+                              device=args.device)
+    scoring = ClipScoring(ranker.visual, ranker.text, ranker.tokenizer)
+    return folder_demo(bundle, scoring, args.folder_path,
+                       out_filename_prefix=args.out_filename_prefix,
+                       total_samples=args.total_samples,
+                       number_to_generate=args.number_to_generate,
+                       text_prefix=args.text_prefix, use_beam_search=not args.no_beam)
+
+
+if __name__ == "__main__":
+    main()

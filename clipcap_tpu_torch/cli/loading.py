@@ -1,0 +1,118 @@
+"""Model loading for the CLIs (port of clipcap_tpu/cli/loading.py:
+load_state_dict, load_clip_ranker's ViT branch, load_captioner_bundle; the
+towers and the captioner also load without their tokenizers).
+
+Every loader takes local paths and downloads nothing: torch .pth/.bin
+state dicts and .npz dumps (converted by tools/import_weights), the port's
+checkpoint directories (train/checkpoints.py), and tokenizer files. Each
+builds its modules on `device`, the card unless asked for the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.config import CaptionerConfig, CLIPTextConfig, ViTConfig
+from ..lm.registry import get_lm_config
+
+
+def load_state_dict(path: str) -> dict:
+    """A torch .pth/.bin or numpy .npz state dict as {name: array}.
+    Torch files load with weights_only=True: tensors and plain containers,
+    no arbitrary pickled objects."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as data:
+            return {k: data[k] for k in data.files}
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if isinstance(obj, dict) and "model" in obj and isinstance(obj["model"], dict):
+        obj = obj["model"]
+    return obj
+
+
+def _layers(sd: dict, prefix: str, at: int) -> int:
+    """The number of distinct layer indices at dotted position `at` of the
+    keys under `prefix`."""
+    return len({k.split(".")[at] for k in sd if k.startswith(prefix)})
+
+
+def load_clip_towers(clip_model: str, checkpoint: str, device: str = "cuda"):
+    """CLIP's image and text towers (models.vit.ViT, models.clip_text.CLIPText)
+    on `device`, from an OpenAI (keys `visual.*`) or HF CLIP state dict."""
+    from .. import convert
+    from ..models.clip_text import CLIPText
+    from ..models.vit import ViT
+    from ..tools import import_weights as W
+
+    if clip_model.startswith("RN"):
+        raise NotImplementedError(
+            f"CLIP {clip_model}: the ResNet image tower is not ported yet (ROADMAP.md item 11, "
+            "Gen B); use a ViT variant")
+    vit_cfg = ViTConfig.clip_variant(clip_model)
+    sd = load_state_dict(checkpoint)
+    if any(k.startswith("visual.") for k in sd):
+        width = np.asarray(sd["ln_final.weight"]).shape[0]
+        text_cfg = CLIPTextConfig(
+            vocab_size=np.asarray(sd["token_embedding.weight"]).shape[0], width=width,
+            layers=_layers(sd, "transformer.resblocks.", 2), heads=width // 64,
+            output_dim=np.asarray(sd["text_projection"]).shape[1])
+        vit_sd = W.clip_vit_from_openai_state_dict(sd, vit_cfg)
+        text_sd = W.clip_text_from_openai_state_dict(sd, text_cfg)
+    else:
+        width = np.asarray(sd["text_model.final_layer_norm.weight"]).shape[0]
+        text_cfg = CLIPTextConfig(
+            vocab_size=np.asarray(sd["text_model.embeddings.token_embedding.weight"]).shape[0],
+            width=width, layers=_layers(sd, "text_model.encoder.layers.", 3),
+            heads=width // 64, output_dim=np.asarray(sd["text_projection.weight"]).shape[0])
+        vit_sd = W.clip_vit_from_hf_state_dict(sd, vit_cfg)
+        text_sd = W.clip_text_from_hf_state_dict(sd, text_cfg)
+    return (convert.load(ViT(vit_cfg, device=device), vit_sd),
+            convert.load(CLIPText(text_cfg, device=device), text_sd))
+
+
+def load_clip_ranker(clip_model: str, checkpoint: str, merges_path: str, device: str = "cuda"):
+    """A CLIPRanker from an OpenAI or HF CLIP state dict and CLIP's merges file."""
+    from ..rank.rankers import CLIPRanker
+    from ..tokenizers.clip_bpe import CLIPTokenizer
+
+    visual, text = load_clip_towers(clip_model, checkpoint, device=device)
+    return CLIPRanker(visual, text, CLIPTokenizer.from_merges_file(merges_path))
+
+
+def load_captioner(checkpoint_path: str, device: str = "cuda"):
+    """A trained ClipCap checkpoint (a directory of clipcap_config.json and
+    consolidated.npz, train/checkpoints.py) -> (Captioner on `device`,
+    CaptionerConfig, LM config, ViTConfig or None)."""
+    from .. import convert
+    from ..models.captioner import Captioner
+    from ..train.checkpoints import load_config, read_params
+
+    payload = load_config(checkpoint_path)
+    cap_cfg = CaptionerConfig.from_dict(payload["captioner"])
+    lm_cfg = get_lm_config(cap_cfg.lm_type, cap_cfg.lm_variant).from_dict(payload["lm"])
+    params = read_params(checkpoint_path)
+    vit_cfg = None
+    if "visual" in params:
+        if cap_cfg.visual_encoder_type.upper() == "BLIP":
+            vit_cfg = ViTConfig.blip_variant(cap_cfg.visual_encoder_variant)
+        else:
+            vit_cfg = ViTConfig.clip_variant(cap_cfg.visual_encoder_variant)
+    model = Captioner(cap_cfg, lm_cfg, vit_cfg=vit_cfg, device=device)
+    convert.load(model, convert.captioner_state_dict(params))
+    return model, cap_cfg, lm_cfg, vit_cfg
+
+
+def load_captioner_bundle(checkpoint_path: str, tokenizer_vocab_dir: str,
+                          device: str = "cuda"):
+    """A trained ClipCap checkpoint and its LM's tokenizer files ->
+    CaptionerBundle on `device`."""
+    from ..models.bundle import CaptionerBundle
+    from ..tokenizers import create_tokenizer
+
+    model, cap_cfg, lm_cfg, vit_cfg = load_captioner(checkpoint_path, device=device)
+    return CaptionerBundle(model, cap_cfg, lm_cfg,
+                           create_tokenizer(cap_cfg.lm_type, tokenizer_vocab_dir),
+                           vit_cfg=vit_cfg, device=device)

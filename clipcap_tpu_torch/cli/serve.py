@@ -1,13 +1,18 @@
 """Batch caption server: CLIP-feature shards -> captions by continuous
-batching (port of clipcap_tpu/cli/serve.py: serve_shard and
-pick_slots_for_p50).
+batching (port of clipcap_tpu/cli/serve.py: serve_shard,
+pick_slots_for_p50 and main).
 
 `serve_shard` projects a shard of CLIP features through the bundle's
 mapper into a prefix pool on the bundle's device and drives
 decode/serving.ServingEngine over it: a fixed batch of slots, each refilled
 with the next image as soon as its caption finishes. It writes one JSONL
-line per image. The command-line `main()`, which loads a checkpoint and a
-GPT-2 vocabulary, comes with the CLI/loading slice.
+line per image.
+
+    python -m clipcap_tpu_torch.cli.serve --checkpoint_path CKPT \
+        --tokenizer_vocab_dir GPT2_VOCAB --prefixes_npy FEATS.npy --out_jsonl OUT
+
+CKPT is a checkpoint directory (train/checkpoints.py); the server runs on
+the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -84,3 +89,60 @@ def serve_shard(
             f.write(json.dumps({"id": i, "caption": bundle.tokenizer.decode_tokens(ids),
                                 "tokens": res["length"], "stopped": res["stopped"]}) + "\n")
     return n
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="continuous-batching caption server over a prefix shard")
+    p.add_argument("--checkpoint_path", required=True)
+    p.add_argument("--tokenizer_vocab_dir", required=True)
+    p.add_argument("--prefixes_npy", required=True,
+                   help="CLIP-feature shard (the prefixes/*.npy layout)")
+    p.add_argument("--out_jsonl", required=True)
+    p.add_argument("--slots", type=int, default=256)
+    p.add_argument("--target_p50_s", type=float, default=None,
+                   help="pick --slots from a latency curve measured on the card (none is "
+                        "measured yet: the flag is refused)")
+    p.add_argument("--refill_size", type=int, default=0, help="0 = slots // 8")
+    p.add_argument("--steps_per_sync", type=int, default=16)
+    p.add_argument("--max_request_length", type=int, default=0,
+                   help="declare the per-request new-token cap bound; the KV ring is "
+                        "sized to it instead of max_new_tokens. Length caps bind through "
+                        "the engine's completion logic, so --eos_token_id must be set")
+    p.add_argument("--int8_decode", action="store_true", help="not ported")
+    p.add_argument("--max_new_tokens", type=int, default=67)
+    p.add_argument("--top_p", type=float, default=0.0)
+    p.add_argument("--top_k", type=int, default=0)
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--repetition_penalty", type=float, default=1.0)
+    p.add_argument("--stop_token_id", type=int, default=None)
+    p.add_argument("--eos_token_id", type=int, default=None)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    if args.int8_decode:
+        raise NotImplementedError("--int8_decode is not ported yet (ROADMAP.md item 8)")
+    if args.target_p50_s is not None:
+        # the JAX CLI reads a curve measured on a TPU; no TPU figure serves here
+        raise NotImplementedError("--target_p50_s needs a serving latency curve measured on "
+                                  "the card, and none is measured yet (PERF.md); pass --slots")
+
+    from .loading import load_captioner_bundle
+
+    bundle = load_captioner_bundle(args.checkpoint_path, args.tokenizer_vocab_dir,
+                                   device=args.device)
+    n = serve_shard(
+        bundle, np.load(args.prefixes_npy), args.out_jsonl,
+        slots=args.slots, refill_size=args.refill_size, steps_per_sync=args.steps_per_sync,
+        max_request_length=args.max_request_length, max_new_tokens=args.max_new_tokens,
+        top_p=args.top_p, top_k=args.top_k, temperature=args.temperature,
+        repetition_penalty=args.repetition_penalty,
+        greedy=(args.top_p == 0.0 and args.top_k == 0),
+        stop_token_id=args.stop_token_id, eos_token_id=args.eos_token_id)
+    print(f"wrote {n} captions to {args.out_jsonl}")
+    return n
+
+
+if __name__ == "__main__":
+    main()

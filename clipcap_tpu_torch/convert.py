@@ -4,7 +4,9 @@ The JAX parameters come in as a pytree of numpy arrays (nested dicts):
 layers stacked on a leading [L] axis, linear weights [in, out]. The port's
 modules hold one submodule per layer and nn.Linear weights [out, in]. This
 module owns every unstack and transpose; `load` copies the converted
-tensors into a module, which keeps its device and dtype.
+tensors into a module, which keeps its device and dtype. `captioner_params`
+goes the other way, from a port Captioner back to the JAX pytree layout
+(the layout of the checkpoint the port writes, train/checkpoints.py).
 """
 
 from __future__ import annotations
@@ -94,6 +96,24 @@ def gpt2_state_dict(params: dict) -> StateDict:
     return sd
 
 
+def clip_text_state_dict(params: dict) -> StateDict:
+    """clipcap_tpu.models.clip_text params -> clipcap_tpu_torch.models.clip_text.CLIPText."""
+    sd = {"token_embedding": np.asarray(params["token_embedding"]),
+          "pos": np.asarray(params["pos"]),
+          "text_projection": np.asarray(params["text_projection"])}
+    sd.update(_ln("ln_final", params["ln_final"]))
+    blocks = params["blocks"]
+    for i in range(np.asarray(blocks["ln1"]["g"]).shape[0]):
+        p = f"blocks.{i}"
+        sd.update(_ln(f"{p}.ln1", blocks["ln1"], i))
+        sd.update(_ln(f"{p}.ln2", blocks["ln2"], i))
+        sd.update(_lin(f"{p}.qkv", blocks["attn"]["wqkv"], blocks["attn"]["bqkv"], i))
+        sd.update(_lin(f"{p}.out", blocks["attn"]["wo"], blocks["attn"]["bo"], i))
+        sd.update(_lin(f"{p}.fc1", blocks["mlp"]["w1"], blocks["mlp"]["b1"], i))
+        sd.update(_lin(f"{p}.fc2", blocks["mlp"]["w2"], blocks["mlp"]["b2"], i))
+    return sd
+
+
 def captioner_state_dict(params: dict) -> StateDict:
     """clipcap_tpu.models.captioner params {"mapper", "lm", ["visual"]} ->
     clipcap_tpu_torch.models.captioner.Captioner (GPT-2 LM)."""
@@ -102,6 +122,101 @@ def captioner_state_dict(params: dict) -> StateDict:
     if "visual" in params:
         sd.update({f"visual.{k}": v for k, v in vit_state_dict(params["visual"]).items()})
     return sd
+
+
+# --- the port's modules -> the JAX pytree layout ------------------------------------------
+
+
+def _unln(sd: StateDict, fmt: str, n: int) -> dict:
+    return {"g": np.stack([sd[fmt.format(i) + ".weight"] for i in range(n)]),
+            "b": np.stack([sd[fmt.format(i) + ".bias"] for i in range(n)])}
+
+
+def _unw(sd: StateDict, fmt: str, n: int) -> np.ndarray:
+    """Stacked [L, in, out] weights of the nn.Linear named fmt.format(i)."""
+    return np.stack([sd[fmt.format(i) + ".weight"].T for i in range(n)])
+
+
+def _unb(sd: StateDict, fmt: str, n: int) -> np.ndarray:
+    return np.stack([sd[fmt.format(i) + ".bias"] for i in range(n)])
+
+
+def _flat_ln(sd: StateDict, name: str) -> dict:
+    return {"g": sd[name + ".weight"], "b": sd[name + ".bias"]}
+
+
+def vit_params(sd: StateDict, layers: int) -> dict:
+    """Inverse of vit_state_dict."""
+    blk = "blocks.{}."
+    params = {"patch": {"w": sd["patch.weight"].T}, "cls": sd["cls"], "pos": sd["pos"],
+              "ln_post": _flat_ln(sd, "ln_post"),
+              "blocks": {"ln1": _unln(sd, blk + "ln1", layers),
+                         "ln2": _unln(sd, blk + "ln2", layers),
+                         "attn": {"wqkv": _unw(sd, blk + "qkv", layers),
+                                  "bqkv": _unb(sd, blk + "qkv", layers),
+                                  "wo": _unw(sd, blk + "out", layers),
+                                  "bo": _unb(sd, blk + "out", layers)},
+                         "mlp": {"w1": _unw(sd, blk + "fc1", layers),
+                                 "b1": _unb(sd, blk + "fc1", layers),
+                                 "w2": _unw(sd, blk + "fc2", layers),
+                                 "b2": _unb(sd, blk + "fc2", layers)}}}
+    if "patch.bias" in sd:
+        params["patch"]["b"] = sd["patch.bias"]
+    if "ln_pre.weight" in sd:
+        params["ln_pre"] = _flat_ln(sd, "ln_pre")
+    if "proj" in sd:
+        params["proj"] = sd["proj"]
+    return params
+
+
+def mapper_params(sd: StateDict, layers: int) -> dict:
+    """Inverse of mapper_state_dict."""
+    lay = "layers.{}."
+    params = {"linear": {"w": sd["linear.weight"].T, "b": sd["linear.bias"]},
+              "prefix_const": sd["prefix_const"],
+              "layers": {"ln1": _unln(sd, lay + "ln1", layers),
+                         "ln2": _unln(sd, lay + "ln2", layers),
+                         "attn": {"wq": _unw(sd, lay + "wq", layers),
+                                  "wkv": _unw(sd, lay + "wkv", layers),
+                                  "wo": _unw(sd, lay + "wo", layers),
+                                  "bo": _unb(sd, lay + "wo", layers)},
+                         "mlp": {"w1": _unw(sd, lay + "fc1", layers),
+                                 "b1": _unb(sd, lay + "fc1", layers),
+                                 "w2": _unw(sd, lay + "fc2", layers),
+                                 "b2": _unb(sd, lay + "fc2", layers)}}}
+    if "pos_embeddings" in sd:
+        params["pos_embeddings"] = sd["pos_embeddings"]
+    return params
+
+
+def gpt2_params(sd: StateDict, layers: int) -> dict:
+    """Inverse of gpt2_state_dict."""
+    blk = "blocks.{}."
+
+    def lin(name):
+        return {"w": _unw(sd, blk + name, layers), "b": _unb(sd, blk + name, layers)}
+
+    return {"wte": sd["wte"], "wpe": sd["wpe"], "ln_f": _flat_ln(sd, "ln_f"),
+            "blocks": {"ln1": _unln(sd, blk + "ln1", layers),
+                       "ln2": _unln(sd, blk + "ln2", layers),
+                       "attn": {"c_attn": lin("c_attn"), "c_proj": lin("c_proj")},
+                       "mlp": {"c_fc": lin("c_fc"), "c_proj": lin("mlp_proj")}}}
+
+
+def captioner_params(model: nn.Module) -> dict:
+    """A port Captioner (GPT-2 LM) -> the JAX package's captioner params
+    {"mapper", "lm", ["visual"]}, numpy on the host: the inverse of
+    captioner_state_dict."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+    def sub(prefix):
+        return {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+
+    params = {"mapper": mapper_params(sub("mapper"), len(model.mapper.layers)),
+              "lm": gpt2_params(sub("lm"), len(model.lm.blocks))}
+    if model.visual is not None:
+        params["visual"] = vit_params(sub("visual"), len(model.visual.blocks))
+    return params
 
 
 def load(module: nn.Module, state: StateDict) -> nn.Module:

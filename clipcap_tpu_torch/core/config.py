@@ -1,7 +1,7 @@
 """Configuration dataclasses of the captioning main path.
 
-The port's own copies of `MapperConfig`, `GPT2Config`, `ViTConfig` and
-`CaptionerConfig` from clipcap_tpu/core/config.py, with the same fields,
+The port's own copies of `MapperConfig`, `GPT2Config`, `ViTConfig`,
+`CLIPTextConfig` and `CaptionerConfig` from clipcap_tpu/core/config.py, with the same fields,
 defaults and JSON round trip (a test holds the two in step). The port keeps
 its own copies because the JAX package's `core/__init__.py` imports JAX.
 """
@@ -116,6 +116,19 @@ class ViTConfig(_JsonMixin):
             raise ValueError(f"unknown BLIP ViT variant {name!r}")
         return cls(style="blip", image_size=image_size, output_dim=None,
                    layer_norm_epsilon=1e-6, **table[name])
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig(_JsonMixin):
+    """CLIP text tower (causal transformer, eot-pooled projection)."""
+
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    layers: int = 12
+    heads: int = 8
+    output_dim: int = 512
+    layer_norm_epsilon: float = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)

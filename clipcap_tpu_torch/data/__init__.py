@@ -1,1 +1,1 @@
-"""Image preprocessing (normalize_on_device in this slice)."""
+"""Image preprocessing (PIL on the host, normalize_on_device on the device)."""

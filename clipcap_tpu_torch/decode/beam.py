@@ -1,0 +1,178 @@
+"""Beam search over prefix embeddings, KV-cached (port of
+clipcap_tpu/decode/beam.py, float GPT-2 caches).
+
+The decode semantics of the reference's generate_beam
+(inference.py:70-148): log-softmax scores, length-normalised selection
+(score sums / sequence lengths), stopped beams frozen (a stopped row offers
+one 0-logprob continuation at column 0), '.'-token stopping, and the final
+order by normalised score. Beams live in the batch axis of the KV cache,
+image i's beams in rows [i*beam, (i+1)*beam); each step reorders the
+cache's generated tail along that axis with a gather.
+
+Selection is plain torch ops, as it is plain XLA in the JAX package: no
+kernel runs here. The f32 operations keep the JAX order (log_softmax of
+logits / temperature, then scores + logp, then / seq_lengths). The host
+reads nothing back inside the loop. The cross-attention cache fields and
+the int8 shared-prefix cache of the JAX module come with the T5/BLIP and
+int8 slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _reorder_cache_tail(cache, global_source: torch.Tensor, p_len: int):
+    """Beam-reorder the cache's batch axis over the generated tail only,
+    positions [p_len, index): the prefix rows of an image's beams are equal
+    (expanded from one prefilled row) and the gather stays within an image,
+    so moving them would change no bit; positions from `index` on are not
+    written yet. The gather reads into a new tensor before the write-back,
+    since it reads the slab it writes."""
+    idx = cache.index
+    for slab in (cache.k, cache.v):
+        slab[:, :, p_len:idx] = slab[:, :, p_len:idx].index_select(1, global_source)
+    return cache
+
+
+def _expand_beams(cache, beam_size: int):
+    """Replicate each row of a prefilled cache beam_size times on the batch
+    axis (row i*beam + b is image i)."""
+    return cache._replace(k=cache.k.repeat_interleave(beam_size, dim=1),
+                          v=cache.v.repeat_interleave(beam_size, dim=1))
+
+
+def _topk_iter(x: torch.Tensor, k: int):
+    """Per-row top-k by k masked argmaxes: [N, M] -> ([N, k] values,
+    [N, k] indices), values descending, ties lowest index first (argmax
+    returns the first maximum: `lax.top_k`'s order). Beam search never
+    asks for more picks than a row has finite entries."""
+    cols = torch.arange(x.shape[-1], device=x.device)
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(x, dim=-1)
+        vals.append(torch.gather(x, -1, i[:, None])[:, 0])
+        idxs.append(i)
+        x = torch.where(cols[None, :] == i[:, None], float("-inf"), x)
+    return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
+
+
+@torch.no_grad()
+def beam_search_batched(
+    lm,  # LM module implementing the lm/registry protocol
+    prompt_embeds: torch.Tensor,  # [N, P, D]
+    beam_size: int = 5,
+    max_new_tokens: int = 67,
+    temperature: float = 1.0,
+    stop_token_id: Optional[int] = None,
+    device="cuda",
+) -> dict:
+    """Beam search over N images in one loop: returns {tokens [N, beam, n]
+    int32, seq_lengths [N, beam] int32, scores [N, beam]}, where scores are
+    the length-normalised log-probs that order the beams (reference
+    inference.py:139-144). Per image it is exactly beam_search; selection
+    stays within each image's beams. Runs on `device`, the card unless
+    asked for the CPU; the LM and the prompt must lie there.
+
+    The JAX loop decodes once more after the last step and drops the
+    logits; this one skips that decode, which changes no output."""
+    dev = torch.device(device)
+    if prompt_embeds.device.type != dev.type:
+        raise ValueError(f"prompt on {prompt_embeds.device}, beam search asked for {dev}")
+    n_img, p_len = prompt_embeds.shape[:2]
+    n = max_new_tokens
+    temp = temperature if temperature > 0 else 1.0
+    dev = prompt_embeds.device
+
+    cache = lm.init_cache(n_img, p_len + n, dtype=prompt_embeds.dtype)
+    logits, cache = lm.prefill(prompt_embeds, cache)
+    logp = torch.log_softmax(logits[:, -1].float() / temp, dim=-1)  # [N, V]
+    vocab = logp.shape[-1]
+
+    # first expansion (reference :102-110)
+    scores, first_tokens = _topk_iter(logp, beam_size)  # [N, beam]
+    tokens = torch.zeros((n_img, beam_size, n), dtype=torch.int64, device=dev)
+    tokens[:, :, 0] = first_tokens
+    seq_lengths = torch.ones((n_img, beam_size), dtype=torch.float32, device=dev)
+    has_stopped = (first_tokens == stop_token_id if stop_token_id is not None
+                   else torch.zeros((n_img, beam_size), dtype=torch.bool, device=dev))
+    cache = _expand_beams(cache, beam_size)
+
+    def step_input(tok):  # tok [N*beam]
+        return lm.embed_tokens(tok)[:, None, :].to(prompt_embeds.dtype)
+
+    img_base = torch.arange(n_img, device=dev)[:, None] * beam_size
+    # a stopped beam's row: -inf everywhere, 0 at column 0 (reference :112-113)
+    frozen = torch.full((vocab,), float("-inf"), device=dev)
+    frozen[0] = 0.0
+    if n > 1:
+        logits, cache = lm.decode_step(step_input(first_tokens.reshape(-1)), cache)
+    for step in range(1, n):
+        logp = torch.log_softmax(logits.float() / temp, dim=-1).reshape(n_img, beam_size, vocab)
+        logp = torch.where(has_stopped[:, :, None], frozen, logp)
+        scores_sum = scores[:, :, None] + logp
+        seq_lengths = seq_lengths + (~has_stopped).float()
+        avg = scores_sum / seq_lengths[:, :, None]
+
+        top_avg, flat_idx = _topk_iter(avg.reshape(n_img, beam_size * vocab), beam_size)
+        source = flat_idx // vocab  # [N, beam], the beam within its image
+        next_tok = flat_idx % vocab
+
+        tokens = torch.gather(tokens, 1, source[:, :, None].expand(-1, -1, n))
+        tokens[:, :, step] = next_tok
+        seq_lengths = torch.gather(seq_lengths, 1, source)
+        has_stopped = torch.gather(has_stopped, 1, source)
+        scores = top_avg * seq_lengths
+
+        cache = _reorder_cache_tail(cache, (img_base + source).reshape(-1), p_len)
+        if stop_token_id is not None:
+            has_stopped = has_stopped | (next_tok == stop_token_id)
+        if step + 1 < n:  # the last step's logits would go unused
+            logits, cache = lm.decode_step(step_input(next_tok.reshape(-1)), cache)
+
+    return {"tokens": tokens.to(torch.int32),
+            "seq_lengths": seq_lengths.to(torch.int32),
+            "scores": scores / seq_lengths}  # final normalisation (reference :139)
+
+
+def beam_search(lm, prompt_embeds: torch.Tensor, beam_size: int = 5, max_new_tokens: int = 67,
+                temperature: float = 1.0, stop_token_id: Optional[int] = None,
+                device="cuda") -> dict:
+    """Single-image beam search (the reference generate_beam contract):
+    prompt_embeds [1, P, D] -> {tokens [beam, n], seq_lengths [beam],
+    scores [beam]}; beam_search_batched at N = 1."""
+    if prompt_embeds.shape[0] != 1:
+        raise ValueError("beam_search expects a single prompt (batch 1); use "
+                         "beam_search_batched for N images")
+    out = beam_search_batched(lm, prompt_embeds, beam_size=beam_size,
+                              max_new_tokens=max_new_tokens, temperature=temperature,
+                              stop_token_id=stop_token_id, device=device)
+    return {k: v[0] for k, v in out.items()}
+
+
+def _host(result: dict):
+    return (result["tokens"].cpu().numpy(), result["seq_lengths"].cpu().numpy(),
+            result["scores"].cpu().numpy())
+
+
+def best_beam_text(result: dict, tokenizer) -> str:
+    """Decode the highest-scoring beam of a beam_search result (reference
+    :140-144), ordered by the same numpy call as the JAX package, so that
+    equal scores resolve the same way."""
+    tokens, lengths, scores = _host(result)
+    best = int(scores.argsort()[::-1][0])
+    return tokenizer.decode_tokens([int(t) for t in tokens[best][: int(lengths[best])]])
+
+
+def best_beam_texts(result: dict, tokenizer) -> list:
+    """The best beam of each image of a beam_search_batched result, in one
+    copy to the host."""
+    tokens, lengths, scores = _host(result)
+    out = []
+    for i in range(tokens.shape[0]):
+        best = int(np.argmax(scores[i]))
+        out.append(tokenizer.decode_tokens([int(t) for t in tokens[i, best][: int(lengths[i, best])]]))
+    return out

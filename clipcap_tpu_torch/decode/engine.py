@@ -12,7 +12,10 @@ a TPU" read as "on CUDA":
   temperature in the kernel;
 - on the CPU, and wherever the kernels do not apply (greedy, an active
   typ_p or sentence-length penalty), the step takes the threshold path,
-  exactly as the JAX engine does on the CPU.
+  exactly as the JAX engine does on the CPU;
+- filter_method="sort" takes the sort-based filters (ops/sampling.py:
+  top_k_top_p_filter with settings.vocab_prefilter, typical_filter) on
+  every device, as the JAX engine does; no kernel runs there.
 
 Randomness: `seed` seeds a `StepRandomness`: a `torch.Generator` for the
 Gumbel draws of the threshold path and the per-step seeds of the kernels'
@@ -64,10 +67,11 @@ class GenerationSettings:
     desired_sentence_length: int = 0  # 0 = off
     sentence_length_factor: float = 1.0
 
-    # "fused" (default) | "fused_step" | "threshold"; see the module doc.
-    # The sort-based filters ("sort" and its vocab_prefilter) come with a
-    # later slice.
+    # "fused" (default) | "fused_step" | "threshold" | "sort"; see the
+    # module doc. vocab_prefilter > 0 runs "sort" on that many top
+    # candidates (exact while the nucleus fits; 0 = full-vocabulary sorts).
     filter_method: str = "fused"
+    vocab_prefilter: int = 0
 
     pad_token_id: int = 0
 
@@ -90,10 +94,9 @@ class StepRandomness:
 
 
 def _check_filter_method(settings: GenerationSettings) -> None:
-    if settings.filter_method not in ("fused", "fused_step", "threshold"):
-        raise NotImplementedError(
-            f"filter_method {settings.filter_method!r} is not ported yet (the sort-based "
-            "filters come with a later slice; use 'fused', 'fused_step' or 'threshold')")
+    if settings.filter_method not in ("fused", "fused_step", "threshold", "sort"):
+        raise ValueError(f"unknown filter_method {settings.filter_method!r} (expected "
+                         "'fused', 'fused_step', 'threshold' or 'sort')")
 
 
 def filter_and_sample(
@@ -126,10 +129,13 @@ def filter_and_sample(
                                    do_topp=topp_active, want_alt_prob=want_alt,
                                    gumbel_noise=gumbel_noise)
 
+    by_sort = settings.filter_method == "sort"
     if topk_active or topp_active:
-        logits = S.top_k_top_p_filter_threshold(logits, top_k, top_p)
+        logits = (S.top_k_top_p_filter(logits, top_k, top_p, prefilter_k=settings.vocab_prefilter)
+                  if by_sort else S.top_k_top_p_filter_threshold(logits, top_k, top_p))
     if typp_active:
-        logits = S.typical_filter_threshold(logits, typ_p)
+        logits = (S.typical_filter(logits, typ_p) if by_sort
+                  else S.typical_filter_threshold(logits, typ_p))
     if slp_active:
         logits = S.sentence_length_penalty(
             logits, settings.stop_token_id, current_length=step,

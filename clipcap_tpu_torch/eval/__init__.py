@@ -1,1 +1,2 @@
-"""Caption samplers (NoBeamCaptionSampler in this slice)."""
+"""Caption samplers, CLIP scoring and the caption metrics (BLEU, METEOR,
+ROUGE-L, CIDEr-D, SPICE: copies of the JAX package's pure-Python files)."""

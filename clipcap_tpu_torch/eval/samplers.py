@@ -1,12 +1,14 @@
-"""Caption samplers (port of NoBeamCaptionSampler, clipcap_tpu/eval/samplers.py).
+"""Caption samplers (port of NoBeamCaptionSampler and BeamCaptionSampler,
+clipcap_tpu/eval/samplers.py).
 
 A sampler takes the bundle and image tensors, runs visual encoder ->
 mapper, then a decode strategy: pixels in, captions out. NoBeamCaptionSampler
 (reference evaluate_model.py:374-393 over generate_no_beam :104-179) runs
 the top_p sweep as the batch of one KV-cached generate(): BOS is
 prepended, '.' stops count up to max_stops, any special token stops, and
-specials are stripped from the output. The beam and CLIP-guided samplers
-come with later slices.
+specials are stripped from the output. BeamCaptionSampler returns the best
+beam of decode/beam.py per image. The CLIP-guided sampler comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import List, Sequence
 
 import torch
 
+from ..decode.beam import beam_search, beam_search_batched, best_beam_text, best_beam_texts
 from ..decode.engine import GenerationSettings, generate, trim_and_decode
 
 
@@ -44,6 +47,7 @@ class NoBeamCaptionSampler(CaptionSamplerBase):
         max_stops: int = 3,
         stop_token: str = ".",
         seed: int = 0,
+        vocab_prefilter: int = 4096,
         device: str = "cuda",
     ):
         if max_decode_length > 77:
@@ -55,6 +59,7 @@ class NoBeamCaptionSampler(CaptionSamplerBase):
         self.max_stops = max_stops
         self.stop_token = stop_token
         self.seed = seed
+        self.vocab_prefilter = vocab_prefilter  # acts only with filter_method="sort"
         self.device = device
 
     def get_description(self):
@@ -81,6 +86,7 @@ class NoBeamCaptionSampler(CaptionSamplerBase):
                 stop_token_id=tokenizer.encode_text(self.stop_token)[0],
                 max_stops=self.max_stops,
                 stop_on_special=tuple(tokenizer.all_special_ids),
+                vocab_prefilter=self.vocab_prefilter,
             )
             return generate(bundle.lm, prompt, settings, seed=self.seed, device=self.device)
 
@@ -104,3 +110,44 @@ class NoBeamCaptionSampler(CaptionSamplerBase):
         flat = trim_and_decode(self._generate(bundle, prefix, n_img), bundle.tokenizer,
                                strip_special=True)
         return [flat[i * n_p: (i + 1) * n_p] for i in range(n_img)]
+
+
+class BeamCaptionSampler(CaptionSamplerBase):
+    """The best beam per image (decode/beam.py, reference inference.py:70-148).
+
+    sample_batch runs all N images in one beam_search_batched call of
+    N x beam_size rows. The JAX sampler splits a call at 480 rows, where
+    the TPU compiler's layout of the decode step turns slow; that limit is
+    the TPU's, so one call here may hold more rows than one call there.
+    Chunking would change no token: images are independent."""
+
+    def __init__(self, beam_size: int = 5, max_decode_length: int = 67,
+                 temperature: float = 1.0, stop_token: str = ".", device: str = "cuda"):
+        self.beam_size = beam_size
+        self.max_decode_length = max_decode_length
+        self.temperature = temperature
+        self.stop_token = stop_token
+        self.device = device
+
+    def get_description(self):
+        return f"Beam(size={self.beam_size}, temp={self.temperature})"
+
+    def _kw(self, bundle) -> dict:
+        return dict(beam_size=self.beam_size, max_new_tokens=self.max_decode_length,
+                    temperature=self.temperature,
+                    stop_token_id=bundle.tokenizer.encode_text(self.stop_token)[0],
+                    device=self.device)
+
+    def generate_captions(self, bundle, prefix, image_embedding=None, image=None) -> List[str]:
+        out = beam_search(bundle.lm_decode, prefix, **self._kw(bundle))
+        return [best_beam_text(out, bundle.tokenizer)]
+
+    def sample_batch(self, bundle, image_tensors, images=None) -> List[List[str]]:
+        """The best-beam caption of each of N images; `images` is unused
+        (the uniform sample_batch signature of the samplers)."""
+        image_tensors = torch.as_tensor(image_tensors)
+        if image_tensors.dim() == 3:
+            image_tensors = image_tensors[None]
+        prefix = bundle.prefix_from_pixels(image_tensors)
+        out = beam_search_batched(bundle.lm_decode, prefix, **self._kw(bundle))
+        return [[t] for t in best_beam_texts(out, bundle.tokenizer)]

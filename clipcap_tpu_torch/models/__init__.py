@@ -1,1 +1,2 @@
-"""Models of the captioning main path: ViT, mapper, GPT-2, captioner, bundle."""
+"""Models of the captioning path: ViT, mapper, GPT-2, captioner, bundle,
+and CLIP's text tower."""

@@ -1,14 +1,21 @@
 """Logit filters and penalties for decoding (port of clipcap_tpu/ops/sampling.py).
 
-Ported in this slice: the sort-free threshold filters
+The sort-based filters (`top_k_top_p_filter` with its `prefilter_k`
+candidate set, `typical_filter`), the sort-free threshold filters
 (`top_k_top_p_filter_threshold`, `typical_filter_threshold`), the
 repetition-penalty pieces (`token_occurrence_mask`, `repetition_penalty`),
-`sentence_length_penalty` and `sample_categorical`. The sort-based filters
-(`top_k_top_p_filter`, `typical_filter`) come with a later slice.
+`sentence_length_penalty` and `sample_categorical`.
 
 All filters take logits [B, V] and return filtered logits with masked
 entries set to -inf. Hyperparameters are Python scalars or per-row [B]
 vectors (tensors, numpy arrays or sequences).
+
+Sort order is the JAX package's: an ascending stable sort of -logits
+(`jnp.argsort(-x)`) lists tied values lowest index first, which is also
+`lax.top_k`'s order, so the prefilter's candidate set is taken from the
+same stable sort (`torch.topk` promises no tie order). Cumulative sums
+run in torch's order, so a kept set may differ from JAX's only where a
+top-p lies within f32 rounding of a cumulative mass.
 """
 
 from __future__ import annotations
@@ -59,6 +66,129 @@ def resolve_top_k_rows(k: torch.Tensor, vocab: int) -> torch.Tensor:
     frac = (k > 0) & (k < 1)
     k_eff = torch.where(frac, torch.clamp(torch.floor(k * vocab), min=1.0), torch.floor(k))
     return torch.clamp(k_eff, 0, vocab)
+
+
+def _sort_desc(x: torch.Tensor):
+    """(values, indices) of each row in descending order, ties lowest index
+    first (`jnp.argsort(-x)`, which is stable)."""
+    idx = torch.sort(-x, dim=-1, stable=True).indices
+    return torch.gather(x, -1, idx), idx
+
+
+def _unsort_mask(sorted_mask: torch.Tensor, sorted_idx: torch.Tensor) -> torch.Tensor:
+    """Scatter a mask computed in sorted order back to the original order."""
+    return torch.empty_like(sorted_mask).scatter_(-1, sorted_idx, sorted_mask)
+
+
+def _host_values(x) -> np.ndarray:
+    """A setting's values on the host, as f64 (the prefilter's exactness guard)."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype=np.float64)
+
+
+def top_k_top_p_filter(
+    logits: torch.Tensor,
+    top_k=0,
+    top_p=0.0,
+    filter_value: float = NEG_INF,
+    prefilter_k: int = 0,
+    _tail_lse: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sort-based top-k + nucleus filtering with per-row settings
+    (reference sampling.py:114-162). k <= 0 disables, 0 < k < 1 keeps
+    max(1, floor(k*V)) tokens, k >= 1 keeps floor(k) (ties at the k-th
+    value survive); p <= 0 disables, else the smallest top set whose mass
+    exceeds p is kept, the crossing token included.
+
+    prefilter_k > 0 runs the filter on the top prefilter_k candidates,
+    with the excluded tail's mass kept in the nucleus denominator for rows
+    without an active top-k. It falls back to the full sort wherever it
+    could be inexact: an effective top-k above prefilter_k, or a top-p of
+    0.995 or more. The port's settings are always concrete, so the guard
+    always applies, as in the JAX function run eagerly."""
+    batch, vocab = logits.shape
+    logits = logits.float()
+    dev = logits.device
+
+    if prefilter_k and prefilter_k < vocab:
+        k_host, p_host = _host_values(top_k), _host_values(top_p)
+        k_abs_host = np.where((k_host > 0) & (k_host < 1),
+                              np.maximum(1.0, np.floor(k_host * vocab)), k_host)
+        if (k_abs_host > prefilter_k).any() or (p_host >= 0.995).any():
+            prefilter_k = 0
+
+    if prefilter_k and prefilter_k < vocab:
+        # resolve fractional top-k against the whole vocabulary first
+        k_in = per_row(top_k, batch, dev)
+        k_abs = torch.where((k_in > 0) & (k_in < 1),
+                            torch.clamp(torch.floor(k_in * vocab), min=1.0), k_in)
+        vals, idx = _sort_desc(logits)
+        vals, idx = vals[:, :prefilter_k], idx[:, :prefilter_k]
+        lse_full = torch.logsumexp(logits, dim=-1)
+        lse_top = torch.logsumexp(vals, dim=-1)
+        delta = torch.clamp(lse_top - lse_full, max=-1e-9)
+        tail_lse = lse_full + torch.log1p(-torch.exp(delta))
+        tail_lse = torch.where(k_abs > 0, torch.full_like(tail_lse, NEG_INF), tail_lse)
+        filtered = top_k_top_p_filter(vals, k_abs, top_p, filter_value, prefilter_k=0,
+                                      _tail_lse=tail_lse)
+        full = torch.full((batch, vocab), filter_value, dtype=torch.float32, device=dev)
+        return full.scatter_(1, idx, filtered)
+
+    k = per_row(top_k, batch, dev)
+    p = per_row(top_p, batch, dev)
+    neg = torch.full((), filter_value, dtype=torch.float32, device=dev)
+
+    # top-k: cutoff at the k-th largest value; values below it go, ties stay
+    sorted_logits, _ = _sort_desc(logits)
+    k_eff = resolve_top_k_rows(k, vocab).to(torch.int64)
+    gather_at = torch.clamp(k_eff - 1, 0, vocab - 1)[:, None]
+    cutoff = torch.gather(sorted_logits, -1, gather_at)
+    logits = torch.where((k_eff > 0)[:, None] & (logits < cutoff), neg, logits)
+
+    # top-p over the (top-k-filtered) row
+    sorted_logits, sorted_idx = _sort_desc(logits)
+    if _tail_lse is None:
+        probs = torch.softmax(sorted_logits, dim=-1)
+    else:
+        denom = torch.logaddexp(torch.logsumexp(sorted_logits, dim=-1), _tail_lse)
+        probs = torch.exp(sorted_logits - denom[:, None])
+    remove = torch.cumsum(probs, dim=-1) > p[:, None]
+    # shift right so the token that crosses p is kept
+    remove = torch.cat([torch.zeros_like(remove[:, :1]), remove[:, :-1]], dim=-1)
+    remove = _unsort_mask(remove & (p > 0.0)[:, None], sorted_idx)
+    return torch.where(remove, neg, logits)
+
+
+def typical_filter(
+    logits: torch.Tensor,
+    typ_p=0.0,
+    min_tokens_to_keep: int = 1,
+    filter_value: float = NEG_INF,
+) -> torch.Tensor:
+    """Typical decoding (reference sampling.py:72-102): keep the tokens
+    whose -log p lies closest to the entropy, in that order, until their
+    mass reaches typ_p (the boundary token included). typ_p <= 0 disables."""
+    batch, vocab = logits.shape
+    logits = logits.float()
+    dev = logits.device
+    tp = per_row(typ_p, batch, dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    log_probs = torch.log_softmax(logits, dim=-1)
+    probs = torch.exp(log_probs)
+    entropy = -torch.where(probs > 0, log_probs * probs, zero).sum(dim=-1, keepdim=True)
+    shifted = torch.abs(log_probs + entropy)  # distance from typicality
+
+    sorted_scores, order = torch.sort(shifted, dim=-1, stable=True)
+    cum = torch.cumsum(torch.gather(probs, -1, order), dim=-1)
+    last_ind = torch.clamp((cum < tp[:, None]).sum(dim=-1, keepdim=True), 0, vocab - 1)
+    cutoff_score = torch.gather(sorted_scores, -1, last_ind)
+    sorted_remove = sorted_scores > cutoff_score
+    if min_tokens_to_keep > 1:
+        sorted_remove &= torch.arange(vocab, device=dev)[None, :] >= min_tokens_to_keep
+    remove = _unsort_mask(sorted_remove, order) & (tp > 0.0)[:, None]
+    return torch.where(remove, torch.full((), filter_value, device=dev), logits)
 
 
 def top_k_top_p_filter_threshold(

@@ -62,3 +62,16 @@ class GPT2TokenizerWrapper:
     @property
     def vocab_size(self) -> int:
         return self.bpe.vocab_size
+
+
+def create_tokenizer(tokenizer_model_type: str, vocab_dir: str):
+    """Type string -> tokenizer wrapper (reference create_dataset.py:242-255);
+    GPT-J and T5 come with the other LM families (ROADMAP.md item 10)."""
+    t = tokenizer_model_type.lower()
+    if t == "gpt2":
+        return GPT2TokenizerWrapper.create(vocab_dir)
+    if t in ("gptj", "gpt-j", "t5", "t0"):
+        raise NotImplementedError(f"the {tokenizer_model_type!r} tokenizer is not ported yet "
+                                  "(ROADMAP.md item 10, other LM families)")
+    raise ValueError(
+        f"invalid tokenizer model type: {tokenizer_model_type!r} (expected gpt2/gpt-j/t0/t5)")

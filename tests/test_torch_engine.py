@@ -146,12 +146,19 @@ def test_cpu_fused_methods_take_the_threshold_path(method, small_world):
 
 
 def test_generate_refuses_other_device_and_sort(small_world):
+    """Another device than the prompt's, and a filter method that does not
+    exist, are refused; "sort" itself runs (tests/test_torch_sort_filters.py
+    holds it against JAX)."""
     _, model, prefix = small_world
     with pytest.raises(ValueError):
         TE.generate(model, torch.from_numpy(prefix), TE.GenerationSettings(max_new_tokens=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TE.generate(model, torch.from_numpy(prefix),
-                    TE.GenerationSettings(max_new_tokens=2, filter_method="sort"), device="cpu")
+                    TE.GenerationSettings(max_new_tokens=2, filter_method="sorted"), device="cpu")
+    out = TE.generate(model, torch.from_numpy(prefix),
+                      TE.GenerationSettings(max_new_tokens=2, top_p=0.5, filter_method="sort"),
+                      device="cpu")
+    assert out["tokens"].shape == (3, 2)
 
 
 def test_trim_and_decode():

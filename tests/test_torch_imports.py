@@ -19,6 +19,16 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "clipcap_tpu_torch"
 SERVING_MODULES = ["clipcap_tpu_torch.ops.ring", "clipcap_tpu_torch.decode.serving",
                    "clipcap_tpu_torch.cli", "clipcap_tpu_torch.cli.serve"]
+# weights in, captions out: beam, loaders, CLIP scoring, metrics and the CLIs
+INFER_MODULES = ["clipcap_tpu_torch.decode.beam", "clipcap_tpu_torch.tokenizers.clip_bpe",
+                 "clipcap_tpu_torch.models.clip_text", "clipcap_tpu_torch.eval.clip_scoring",
+                 "clipcap_tpu_torch.rank.rankers", "clipcap_tpu_torch.tools.import_weights",
+                 "clipcap_tpu_torch.train.checkpoints", "clipcap_tpu_torch.cli.loading",
+                 "clipcap_tpu_torch.cli.infer", "clipcap_tpu_torch.eval.scoring",
+                 "clipcap_tpu_torch.eval.bleu", "clipcap_tpu_torch.eval.cider",
+                 "clipcap_tpu_torch.eval.rouge", "clipcap_tpu_torch.eval.meteor",
+                 "clipcap_tpu_torch.eval.synonyms", "clipcap_tpu_torch.eval.spice",
+                 "clipcap_tpu_torch.eval.ptb_tokenizer"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -49,20 +59,52 @@ def test_import_pulls_in_no_jax_triton_or_jax_package():
         assert f"'{name}'" in out.stdout, name
 
 
+# every module imports with jax, PIL, regex and transformers unimportable:
+# the port imports PIL and regex inside the functions that need them, and
+# transformers never
+_IMPORT_ALL_BLOCKED = """
+import importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "PIL", "regex", "transformers", "clipcap_tpu")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+""" + _IMPORT_ALL
+
+
+def test_every_module_imports_without_jax_pil_regex_or_transformers():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL_BLOCKED], capture_output=True,
+                         text=True, cwd=ROOT, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    for name in SERVING_MODULES + INFER_MODULES:
+        assert f"'{name}'" in out.stdout, name
+
+
 def test_source_has_no_jax_or_jax_package_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|clipcap_tpu)(\.|\s|$)", re.M)
+    top = re.compile(r"^(import|from)\s+(PIL|regex|transformers)(\.|\s|$)", re.M)
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for name in SERVING_MODULES:
+    for name in SERVING_MODULES + INFER_MODULES:
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
-        for m in pat.finditer(path.read_text()):
+        text = path.read_text()
+        for m in pat.finditer(text):
             hits.append(f"{path.relative_to(ROOT)}: {m.group(0).strip()}")
+        # PIL and regex only inside functions; transformers nowhere
+        for m in top.finditer(text):
+            hits.append(f"{path.relative_to(ROOT)} at module level: {m.group(0).strip()}")
+        if re.search(r"^\s*(import|from)\s+transformers", text, re.M):
+            hits.append(f"{path.relative_to(ROOT)}: imports transformers")
     assert hits == []
 
 
-@pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "ViTConfig", "CaptionerConfig"])
+@pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "ViTConfig", "CaptionerConfig",
+                                  "CLIPTextConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     a, b = getattr(jax_config, name), getattr(torch_config, name)
     fa = [(f.name, f.type) for f in dataclasses.fields(a)]
