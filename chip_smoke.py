@@ -16,12 +16,13 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    kernel, the plain version, and the one PyTorch library call that
    computes the same function where there is one (SDPA for attention),
    beside the least time the card could take (the bound); K1 also at the
-   encoders' batches of 1 and 64 images, L2-cold, and in bf16 at the main
-   shape and at T=577; K2/K3/K4 at 1, 8, 9, 64, 72 and 512 rows of V=50257
+   encoders' batches of 1, 8 and 64 images, L2-cold, and in bf16 at the
+   main shape, at T=577 and at 1, 8 and 16 images; K2/K3/K4 at 1, 8, 9,
+   16, 64, 72 and 512 rows of V=50257
    (every cluster size the launcher picks, and each path's rows), on
    hard rows (ties, all equal, -inf columns, top-p near 0 and 1), for
    bit-identical repeats and Philox draws inside the kept set, and timed
-   at 8, 64, 72 and 512 rows with the cluster size used;
+   at 8, 16, 64, 72 and 512 rows with the cluster size used;
 4. drives the main path at full width — CLIP ViT-B/32 at 224 px, the default
    ClipCap mapper, GPT-2 124M, seeded random f32 weights — through
    CaptionerBundle.encode_image, greedy generate, NoBeamCaptionSampler and a
@@ -42,7 +43,17 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    checks K1 per encoder call, K2 per decode step, one finite-scored JSON
    entry per image, and the best beams of two images against the CPU;
    times and profiles the beam call;
-7. prints one JSON line of kernels, the card line, and last
+7. drives the evaluate path (cli/evaluate.py) on the same checkpoint and on
+   the model cast to bf16, written by the port's writer and read back bit
+   for bit: cli.evaluate.main over 16 seeded JPEGs with 5 captions each in
+   chunks of 8 (the no-beam sweep, the CLIP-guided tree, CLIP scores, the
+   validation loss), with the launch counters set to 0 just before and read
+   just after; checks K1 per encoder call (bf16 in the bf16 captioner), K2
+   per no-beam decode step, finite scores, the first chunk's loss and two
+   images' CLIP-guided captions against the CPU, and the bf16 loss near
+   f32's; times and profiles a CLIP-guided chunk and a validator chunk per
+   dtype, and the main path's sampler call on the bf16 model;
+8. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -54,6 +65,7 @@ from __future__ import annotations
 
 import copy
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -214,17 +226,20 @@ def check_attention(torch, FA):
             worst[name] = max(worst[name], err)
             say(f"K1 packed qkv views B=4 T={t} H={h} dh={dh} {name}: max abs err {err:.3e}")
     # the batches the paths' ViT-B/32 encoders hand K1: one image (the no-beam
-    # infer call, both encoders) and 64 (the main path, a beam chunk)
-    atol, rtol = K1_TOL["float32"]
-    for b in (1, 64):
-        q, k, v = packed_qkv(torch, gen, b, 50, 12, 64, torch.float32)
-        got = FA.fused_attention(q, k, v)
-        torch.cuda.synchronize()
-        err = assert_close(torch, got, FA.fused_attention_plain(
-            q.contiguous(), k.contiguous(), v.contiguous()), atol, rtol,
-            f"K1 packed qkv B={b} T=50 H=12 dh=64 float32")
-        worst["float32"] = max(worst["float32"], err)
-        say(f"K1 packed qkv views B={b} T=50 H=12 dh=64 float32: max abs err {err:.3e}")
+    # infer call and the evaluate path's per-image scores, both encoders), 8
+    # (an evaluate chunk: the captioner in f32 or bf16, the scorer in f32) and
+    # 64 (the main path, a beam chunk); bf16 at 16 images too
+    for dtype, batches in ((torch.float32, (1, 8, 64)), (torch.bfloat16, (1, 8, 16))):
+        name = str(dtype).split(".")[1]
+        for b in batches:
+            q, k, v = packed_qkv(torch, gen, b, 50, 12, 64, dtype)
+            got = FA.fused_attention(q, k, v)
+            torch.cuda.synchronize()
+            err = assert_close(torch, got, FA.fused_attention_plain(
+                q.contiguous(), k.contiguous(), v.contiguous()), *K1_TOL[name],
+                f"K1 packed qkv B={b} T=50 H=12 dh=64 {name}")
+            worst[name] = max(worst[name], err)
+            say(f"K1 packed qkv views B={b} T=50 H=12 dh=64 {name}: max abs err {err:.3e}")
 
     def sdpa(q, k, v):
         return lambda: F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)))
@@ -256,16 +271,19 @@ def check_attention(torch, FA):
     out = dict(max_abs_err=worst["float32"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=library_ms, max_abs_err_bf16=worst["bfloat16"],
                cold_ms=cold_ms, library_cold_ms=library_cold_ms)
-    # bf16 at the main shape and at BLIP's T=577
-    for key, t in (("bf16", 50), ("bf16_t577", 577)):
-        q, k, v = packed_qkv(torch, gen, b, t, h, dh, torch.bfloat16)
+    # bf16 at the main shape, at BLIP's T=577, and at the evaluate path's 8
+    # and 16 images
+    for key, bb, t in (("bf16", b, 50), ("bf16_t577", b, 577), ("bf16_b8", 8, 50),
+                       ("bf16_b16", 16, 50)):
+        q, k, v = packed_qkv(torch, gen, bb, t, h, dh, torch.bfloat16)
         kms = device_ms(torch, lambda: FA.fused_attention(q, k, v), kernel="attn_kernel")
+        pms = device_ms(torch, lambda: FA.fused_attention_plain(q, k, v), 5)
         lms = device_ms(torch, sdpa(q, k, v))
-        bms, bby = attention_bound(b, t, h, dh, "bf16")
-        say(f"K1 B={b} T={t} H={h} dh={dh} bf16 packed qkv (device ms): kernel {kms:.4f}, "
-            f"SDPA {lms:.4f}, bound {bms:.4f} ({bby})")
-        out[key] = dict(shape=[b, t, h, dh], ms=kms, library_ms=lms, bound_ms=bms,
-                        bound_by=bby)
+        bms, bby = attention_bound(bb, t, h, dh, "bf16")
+        say(f"K1 B={bb} T={t} H={h} dh={dh} bf16 packed qkv (device ms): kernel {kms:.4f}, "
+            f"plain {pms:.4f}, SDPA {lms:.4f}, bound {bms:.4f} ({bby})")
+        out[key] = dict(shape=[bb, t, h, dh], ms=kms, plain_ms=pms, library_ms=lms,
+                        bound_ms=bms, bound_by=bby)
     return out
 
 
@@ -295,9 +313,10 @@ def filter_bound(rows: int, vocab: int):
 
 
 # every cluster size the launcher picks at V=50257, and the rows each path
-# hands K2: the no-beam infer call's 9, the main path's 72
-SAMPLER_ROWS = [1, 8, 9, 64, 72, 512]
-TIMED_ROWS = [8, 64, 72, 512]
+# hands K2: the no-beam infer call's 9, the evaluate chunk's 16 (8 images x
+# 2 top-p), the main path's 72
+SAMPLER_ROWS = [1, 8, 9, 16, 64, 72, 512]
+TIMED_ROWS = [8, 16, 64, 72, 512]
 HARD_KK = [1.0, 40.0, 50257.0]
 HARD_PP = [0.0, 1e-4, 0.5, 0.999, 1.0]
 TIE_MARGIN = 1e-5  # hard rows keep top-p this far (relative) from every cumulative mass
@@ -725,8 +744,10 @@ def main_path(torch, counters, bundle):
     check(bool(torch.isfinite(lp).all() and (lp <= 0).all()), "eos_logprob not a log-prob")
     say(f"(d) fused_step generate 8x{n_new}: {8 / secs['d']:.2f} captions/s; "
         f"eos_logprob in [{float(lp.min()):.3f}, {float(lp.max()):.3f}]")
-    profile_call(torch, "(c)", lambda: sampler.sample_batch(bundle, pixels[:8]), secs["c"] * 1e3)
-    return launches, {"images_per_s": 64 / secs["a"], "captions_per_s": n_caps / secs["c"]}
+    c_prof = profile_call(torch, "(c)", lambda: sampler.sample_batch(bundle, pixels[:8]),
+                          secs["c"] * 1e3)
+    return launches, {"images_per_s": 64 / secs["a"], "captions_per_s": n_caps / secs["c"],
+                      "c_profile": c_prof}
 
 
 # --- 5. the serving path -------------------------------------------------------------
@@ -987,21 +1008,21 @@ def check_beam_vs_cpu(torch, bundle, prompt, card_out, card_sel, n_check: int = 
     return flips, cpu_s
 
 
-def infer_path(torch, counters, bundle, card: str):
+def infer_path(torch, counters, bundle, card: str, work: Path):
     """(f) weights in, captions out, at full width: the bundle is written by
     the port's checkpoint writer and an OpenAI-layout CLIP ViT-B/32 state
-    dict by torch.save, both read back by the port's loaders onto the card
-    and held against what was written; then cli.infer.main captions a
-    folder of 64 seeded JPEGs by beam search (64 images x beam 5 x 67 new
-    tokens, one chunk of 320 rows) and 8 of them by the no-beam top-p
-    sweep, with a synthetic 50257-entry GPT-2 vocabulary and a short CLIP
-    merges file. The launch counters are set to 0 just before these two
-    runs and read just after. Then the beam call again, traced once as the
-    warm-up, then timed and profiled, its best beams held against the CPU,
-    and a timed no-beam image call."""
+    dict by torch.save into `work`, both read back by the port's loaders
+    onto the card and held against what was written; then cli.infer.main
+    captions a folder of 64 seeded JPEGs by beam search (64 images x beam 5
+    x 67 new tokens, one chunk of 320 rows) and 8 of them by the no-beam
+    top-p sweep, with a synthetic 50257-entry GPT-2 vocabulary and a short
+    CLIP merges file. The launch counters are set to 0 just before these
+    two runs and read just after. Then the beam call again, traced once as
+    the warm-up, then timed and profiled, its best beams held against the
+    CPU, and a timed no-beam image call. The files stay in `work` for the
+    evaluate phase."""
     import contextlib
     import math
-    import shutil
 
     import numpy as np
     from PIL import Image
@@ -1017,144 +1038,513 @@ def infer_path(torch, counters, bundle, card: str):
     from clipcap_tpu_torch.train.checkpoints import save_checkpoint
 
     t_phase = time.perf_counter()
-    work = ROOT / "build" / "smoke_infer"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     vit_cfg = bundle.vit_cfg
-    try:
-        # write, then load back through the port's loaders
+    # write, then load back through the port's loaders
+    t0 = time.perf_counter()
+    save_checkpoint(str(work / "ckpt"), bundle.model, bundle.cap_cfg, bundle.lm_cfg)
+    clip_sd = clip_openai_state_dict(torch, vit_cfg, seed=11)
+    torch.save(clip_sd, work / "clip.pt")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, cap_cfg, lm_cfg, loaded_vit = load_captioner(str(work / "ckpt"), device="cuda")
+    visual, text = load_clip_towers("ViT-B/32", str(work / "clip.pt"), device="cuda")
+    load_s = time.perf_counter() - t0
+    want = bundle.model.state_dict()
+    for name, p in model.state_dict().items():
+        check(p.is_cuda and torch.equal(p, want[name]), f"loaded captioner {name} differs")
+    for mod, conv in ((visual, W.clip_vit_from_openai_state_dict(clip_sd, vit_cfg)),
+                      (text, W.clip_text_from_openai_state_dict(clip_sd, text.cfg))):
+        for name, p in mod.state_dict().items():
+            check(p.is_cuda and torch.equal(p.cpu(), torch.from_numpy(np.array(conv[name]))),
+                  f"loaded CLIP {name} differs from the written state dict")
+    check(loaded_vit == vit_cfg and cap_cfg == bundle.cap_cfg and lm_cfg == bundle.lm_cfg
+          and text.cfg == CLIPTextConfig(**CLIP_TEXT, heads=CLIP_TEXT["width"] // 64),
+          "loaded configs differ from the written ones")
+    del want
+    say(f"(f) loaders: checkpoint ({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+        f"params) and OpenAI-layout CLIP ViT-B/32 ({sum(p.numel() for p in visual.parameters()) / 1e6:.1f}M"
+        f" + text {sum(p.numel() for p in text.parameters()) / 1e6:.1f}M) written in "
+        f"{write_s:.1f} s, read back onto the card in {load_s:.1f} s; every parameter on the "
+        f"card and equal to what was written")
+
+    # the infer path, its launches counted
+    write_gpt2_vocab(work / "vocab")
+    (work / "clip_merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(" ".join(m) for m in CLIP_MERGES) + "\n")
+    write_jpegs(work / "images", INFER_IMAGES, seed=13)
+    args = ["--checkpoint_path", str(work / "ckpt"),
+            "--tokenizer_vocab_dir", str(work / "vocab"),
+            "--folder_path", str(work / "images"), "--clip_model", "ViT-B/32",
+            "--clip_checkpoint", str(work / "clip.pt"),
+            "--clip_merges", str(work / "clip_merges.txt"), "--device", "cuda"]
+    scoring = ClipScoring(visual, text, None)
+    pixels = []
+    for f in sorted((work / "images").glob("*.jpg")):
+        with Image.open(f) as image:
+            pixels.append(scoring.preprocess_image(image))
+    pixels = np.stack(pixels)
+    loaded = CaptionerBundle(model, cap_cfg, lm_cfg,
+                             create_tokenizer("gpt2", str(work / "vocab")),
+                             vit_cfg=loaded_vit, device="cuda")
+
+    def run(beam, n_img, prefix):
+        extra = [] if beam else ["--no_beam", "--total_samples", str(n_img)]
+        return infer_cli.main(args + extra + ["--out_filename_prefix", str(work / prefix)])
+    del clip_sd
+    torch.cuda.synchronize()
+    counters(reset=True)
+    runs = {}
+    for name, beam, n_img in (("beam", True, INFER_IMAGES),
+                              ("no_beam", False, NOBEAM_IMAGES)):
+        before = counters()
         t0 = time.perf_counter()
-        save_checkpoint(str(work / "ckpt"), bundle.model, bundle.cap_cfg, bundle.lm_cfg)
-        clip_sd = clip_openai_state_dict(torch, vit_cfg, seed=11)
-        torch.save(clip_sd, work / "clip.pt")
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        model, cap_cfg, lm_cfg, loaded_vit = load_captioner(str(work / "ckpt"), device="cuda")
-        visual, text = load_clip_towers("ViT-B/32", str(work / "clip.pt"), device="cuda")
-        load_s = time.perf_counter() - t0
-        want = bundle.model.state_dict()
-        for name, p in model.state_dict().items():
-            check(p.is_cuda and torch.equal(p, want[name]), f"loaded captioner {name} differs")
-        for mod, conv in ((visual, W.clip_vit_from_openai_state_dict(clip_sd, vit_cfg)),
-                          (text, W.clip_text_from_openai_state_dict(clip_sd, text.cfg))):
-            for name, p in mod.state_dict().items():
-                check(p.is_cuda and torch.equal(p.cpu(), torch.from_numpy(np.array(conv[name]))),
-                      f"loaded CLIP {name} differs from the written state dict")
-        check(loaded_vit == vit_cfg and cap_cfg == bundle.cap_cfg and lm_cfg == bundle.lm_cfg
-              and text.cfg == CLIPTextConfig(**CLIP_TEXT, heads=CLIP_TEXT["width"] // 64),
-              "loaded configs differ from the written ones")
-        del want
-        say(f"(f) loaders: checkpoint ({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
-            f"params) and OpenAI-layout CLIP ViT-B/32 ({sum(p.numel() for p in visual.parameters()) / 1e6:.1f}M"
-            f" + text {sum(p.numel() for p in text.parameters()) / 1e6:.1f}M) written in "
-            f"{write_s:.1f} s, read back onto the card in {load_s:.1f} s; every parameter on the "
-            f"card and equal to what was written")
-
-        # the infer path, its launches counted
-        write_gpt2_vocab(work / "vocab")
-        (work / "clip_merges.txt").write_text(
-            "#version: 0.2\n" + "\n".join(" ".join(m) for m in CLIP_MERGES) + "\n")
-        write_jpegs(work / "images", INFER_IMAGES, seed=13)
-        args = ["--checkpoint_path", str(work / "ckpt"),
-                "--tokenizer_vocab_dir", str(work / "vocab"),
-                "--folder_path", str(work / "images"), "--clip_model", "ViT-B/32",
-                "--clip_checkpoint", str(work / "clip.pt"),
-                "--clip_merges", str(work / "clip_merges.txt"), "--device", "cuda"]
-        scoring = ClipScoring(visual, text, None)
-        pixels = []
-        for f in sorted((work / "images").glob("*.jpg")):
-            with Image.open(f) as image:
-                pixels.append(scoring.preprocess_image(image))
-        pixels = np.stack(pixels)
-        loaded = CaptionerBundle(model, cap_cfg, lm_cfg,
-                                 create_tokenizer("gpt2", str(work / "vocab")),
-                                 vit_cfg=loaded_vit, device="cuda")
-
-        def run(beam, n_img, prefix):
-            extra = [] if beam else ["--no_beam", "--total_samples", str(n_img)]
-            return infer_cli.main(args + extra + ["--out_filename_prefix", str(work / prefix)])
-        del clip_sd
+        with open(work / f"{name}_stdout.txt", "w") as log, contextlib.redirect_stdout(log):
+            data = run(beam, n_img, name)
         torch.cuda.synchronize()
-        counters(reset=True)
-        runs = {}
-        for name, beam, n_img in (("beam", True, INFER_IMAGES),
-                                  ("no_beam", False, NOBEAM_IMAGES)):
-            before = counters()
-            t0 = time.perf_counter()
-            with open(work / f"{name}_stdout.txt", "w") as log, contextlib.redirect_stdout(log):
-                data = run(beam, n_img, name)
-            torch.cuda.synchronize()
-            after = counters()
-            runs[name] = (data, time.perf_counter() - t0,
-                          {k: after[k] - before[k] for k in after}, n_img)
-        launches = counters()
+        after = counters()
+        runs[name] = (data, time.perf_counter() - t0,
+                      {k: after[k] - before[k] for k in after}, n_img)
+    launches = counters()
 
-        for name, (data, secs, rise, n_img) in runs.items():
-            written = json.loads((work / f"{name}_shutterstock.json").read_text())
-            check(len(data) == n_img and written == json.loads(json.dumps(data)),
-                  f"({name}) the JSON holds {len(written)} entries, want {n_img}")
-            check(all(math.isfinite(v) for e in data.values() for v in e["scores"].values()),
-                  f"({name}) a score is not finite")
-            check(all(len(e["generated_captions"]) == 1 for e in data.values()),
-                  f"({name}) not one caption per image")
-            chunks = math.ceil(n_img / 64)
-            want_k1 = vit_cfg.layers * (chunks if name == "beam" else 2 * n_img)
-            want_k2 = 0 if name == "beam" else 75 * n_img  # NoBeamCaptionSampler: 75 steps
-            check(rise["fused_attention"] == want_k1,
-                  f"({name}) K1 launched {rise['fused_attention']} times, want {want_k1}")
-            check(rise["fused_filter_sample"] == want_k2,
-                  f"({name}) K2 launched {rise['fused_filter_sample']} times, want {want_k2}")
-            first = next(iter(data.values()))
-            say(f"(f) cli.infer.main {name}: "
-                f"{n_img} images in {secs:.1f} s (loading included), one JSON entry and finite "
-                f"scores per image; K1 +{rise['fused_attention']}, K2 +"
-                f"{rise['fused_filter_sample']}; first caption [{first['generated_captions'][0][:40]!r}]")
+    for name, (data, secs, rise, n_img) in runs.items():
+        written = json.loads((work / f"{name}_shutterstock.json").read_text())
+        check(len(data) == n_img and written == json.loads(json.dumps(data)),
+              f"({name}) the JSON holds {len(written)} entries, want {n_img}")
+        check(all(math.isfinite(v) for e in data.values() for v in e["scores"].values()),
+              f"({name}) a score is not finite")
+        check(all(len(e["generated_captions"]) == 1 for e in data.values()),
+              f"({name}) not one caption per image")
+        chunks = math.ceil(n_img / 64)
+        want_k1 = vit_cfg.layers * (chunks if name == "beam" else 2 * n_img)
+        want_k2 = 0 if name == "beam" else 75 * n_img  # NoBeamCaptionSampler: 75 steps
+        check(rise["fused_attention"] == want_k1,
+              f"({name}) K1 launched {rise['fused_attention']} times, want {want_k1}")
+        check(rise["fused_filter_sample"] == want_k2,
+              f"({name}) K2 launched {rise['fused_filter_sample']} times, want {want_k2}")
+        first = next(iter(data.values()))
+        say(f"(f) cli.infer.main {name}: "
+            f"{n_img} images in {secs:.1f} s (loading included), one JSON entry and finite "
+            f"scores per image; K1 +{rise['fused_attention']}, K2 +"
+            f"{rise['fused_filter_sample']}; first caption [{first['generated_captions'][0][:40]!r}]")
 
-        # the beam call alone: 64 images x beam 5 x 67 tokens, one chunk of 320 rows
-        with torch.no_grad():
-            prompt = loaded.prefix_from_pixels(torch.from_numpy(pixels))
+    # the beam call alone: 64 images x beam 5 x 67 tokens, one chunk of 320 rows
+    with torch.no_grad():
+        prompt = loaded.prefix_from_pixels(torch.from_numpy(pixels))
 
-        def beam_call():
-            return beam_search_batched(loaded.lm_decode, prompt, beam_size=BEAM,
-                                       max_new_tokens=BEAM_NEW, stop_token_id=STOP,
-                                       device="cuda")
+    def beam_call():
+        return beam_search_batched(loaded.lm_decode, prompt, beam_size=BEAM,
+                                   max_new_tokens=BEAM_NEW, stop_token_id=STOP,
+                                   device="cuda")
 
-        # warm-up: the same call with each step's selection recorded
-        traced, card_sel, _ = traced_beam(torch, loaded.lm_decode, prompt, "cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = beam_call()
-        texts = best_beam_texts(out, loaded.tokenizer)
-        beam_s = time.perf_counter() - t0
-        check(len(texts) == INFER_IMAGES and bool(torch.isfinite(out["scores"]).all()),
-              "beam call: wrong number of captions or non-finite scores")
-        check(torch.equal(traced["tokens"], out["tokens"]),
-              "the traced beam call on the card gave other tokens than the timed one")
-        flips, cpu_s = check_beam_vs_cpu(torch, loaded, prompt, out, card_sel)
-        # one no-beam image call (the sweep's 9 captions), as the infer path makes it
-        infer_cli.caption_pixels(loaded, scoring, pixels[:1], use_beam_search=False)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        infer_cli.caption_pixels(loaded, scoring, pixels[1:2], use_beam_search=False)
-        torch.cuda.synchronize()
-        nobeam_s = time.perf_counter() - t0
-        rates = dict(beam_captions_per_s=INFER_IMAGES / beam_s, beam_call_s=beam_s,
-                     nobeam_image_call_s=nobeam_s,
-                     nobeam_captions_per_s=len(TOP_P_SWEEP) / nobeam_s, beam_flips=flips)
-        say(f"(f) on {card}: beam {INFER_IMAGES} images x beam {BEAM} x {BEAM_NEW} tokens "
-            f"({INFER_IMAGES * BEAM} rows): {beam_s * 1e3:.1f} ms = {rates['beam_captions_per_s']:.2f} captions/s; "
-            f"no-beam image call (9 top-p rows x 75 steps, scorer included): "
-            f"{nobeam_s * 1e3:.1f} ms = {rates['nobeam_captions_per_s']:.2f} captions/s; "
-            f"CPU comparison {cpu_s:.1f} s")
-        prof = profile_call(torch, "(f) beam", beam_call, beam_s * 1e3)
-        rates.update(busy_share=prof["busy_ms"] / prof["wall_ms"],
-                     launches_per_step=prof["launches"] / BEAM_NEW)
-        say(f"(f) beam call on {card}: {prof['launches'] / BEAM_NEW:.1f} kernel launches per "
-            f"beam step ({prof['launches']} in {BEAM_NEW} steps and the prefill)")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    # warm-up: the same call with each step's selection recorded
+    traced, card_sel, _ = traced_beam(torch, loaded.lm_decode, prompt, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = beam_call()
+    texts = best_beam_texts(out, loaded.tokenizer)
+    beam_s = time.perf_counter() - t0
+    check(len(texts) == INFER_IMAGES and bool(torch.isfinite(out["scores"]).all()),
+          "beam call: wrong number of captions or non-finite scores")
+    check(torch.equal(traced["tokens"], out["tokens"]),
+          "the traced beam call on the card gave other tokens than the timed one")
+    flips, cpu_s = check_beam_vs_cpu(torch, loaded, prompt, out, card_sel)
+    # one no-beam image call (the sweep's 9 captions), as the infer path makes it
+    infer_cli.caption_pixels(loaded, scoring, pixels[:1], use_beam_search=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer_cli.caption_pixels(loaded, scoring, pixels[1:2], use_beam_search=False)
+    torch.cuda.synchronize()
+    nobeam_s = time.perf_counter() - t0
+    rates = dict(beam_captions_per_s=INFER_IMAGES / beam_s, beam_call_s=beam_s,
+                 nobeam_image_call_s=nobeam_s,
+                 nobeam_captions_per_s=len(TOP_P_SWEEP) / nobeam_s, beam_flips=flips)
+    say(f"(f) on {card}: beam {INFER_IMAGES} images x beam {BEAM} x {BEAM_NEW} tokens "
+        f"({INFER_IMAGES * BEAM} rows): {beam_s * 1e3:.1f} ms = {rates['beam_captions_per_s']:.2f} captions/s; "
+        f"no-beam image call (9 top-p rows x 75 steps, scorer included): "
+        f"{nobeam_s * 1e3:.1f} ms = {rates['nobeam_captions_per_s']:.2f} captions/s; "
+        f"CPU comparison {cpu_s:.1f} s")
+    prof = profile_call(torch, "(f) beam", beam_call, beam_s * 1e3)
+    rates.update(busy_share=prof["busy_ms"] / prof["wall_ms"],
+                 launches_per_step=prof["launches"] / BEAM_NEW)
+    say(f"(f) beam call on {card}: {prof['launches'] / BEAM_NEW:.1f} kernel launches per "
+        f"beam step ({prof['launches']} in {BEAM_NEW} steps and the prefill)")
     say(f"infer phase (f): {time.perf_counter() - t_phase:.1f} s")
-    return launches, rates
+    return launches, rates, dict(bundle=loaded, visual=visual, text=text)
+
+
+# --- 7. the evaluate path ------------------------------------------------------------
+
+EVAL_IMAGES, EVAL_CHUNK, EVAL_CAPTIONS = 16, 8, 5
+# cli/evaluate.py's samplers: the no-beam sweep, and the CLIP-guided tree
+# (branching 2, look-ahead 4, repetition penalty 1.2, 75 tokens)
+EVAL_TOP_P, CG_BRANCH, CG_LOOK, CG_MAX = (0.1, 0.2), 2, 4, 75
+CAPTION_WORDS = ("a", "the", "two", "cat", "dog", "man", "woman", "bus", "plate", "red",
+                 "small", "sits", "runs", "on", "near", "with", "street", "table", "field",
+                 "of", "food", "is", "standing", "next", "to")
+# the bf16 loss against the f32 loss: |d CE| <= 2 max|d logit|, and a logit
+# computed in bf16 through the encoder, the mapper and GPT-2 lies within
+# BF16_LOGIT_STEPS relative bf16 steps (2^-8) of the logits' scale: the
+# CPU tests hold GPT-2 alone within 4 (tests/test_torch_gpt2_dtypes.py),
+# and the pipeline stacks three such stages and the pixels' rounding
+BF16_LOGIT_STEPS = 16
+
+
+def write_coco(folder: Path, n: int, seed: int) -> None:
+    """n seeded JPEGs (write_jpegs) under folder/images and a COCO-format
+    folder/captions.json with EVAL_CAPTIONS seeded lower-case captions per
+    image, which byte-level BPE (GPT-2's and CLIP's) encodes whatever the
+    merges."""
+    import numpy as np
+
+    write_jpegs(folder / "images", n, seed)
+    rng = np.random.default_rng(seed)
+    images, annotations = [], []
+    for i in range(n):
+        name = f"img{i:03d}.jpg"
+        images.append({"id": i, "file_name": name, "coco_url": f"http://images.invalid/{name}"})
+        for j in range(EVAL_CAPTIONS):
+            words = rng.choice(CAPTION_WORDS, size=int(rng.integers(6, 13)))
+            annotations.append({"image_id": i, "id": i * EVAL_CAPTIONS + j,
+                                "caption": " ".join(words) + "."})
+    (folder / "captions.json").write_text(json.dumps({"images": images,
+                                                      "annotations": annotations}))
+
+
+def traced_clip_guided(torch, bundle, scoring, pixels, images, device: str):
+    """The CLIP-guided sampler's decode of these images
+    (ClipGuidedCaptionSampler.sample_batch's inputs into
+    generate_clip_guided_tokens) with each tree chunk's near-ties recorded:
+    every top-k takes one pick more than asked (the first picks do not
+    change), which gives each row's gap between its k-th and (k+1)-th
+    logit, and each image's choice records the gap between its best CLIP
+    score and the best one below it (exactly equal scores belong to
+    candidates that decode to the same text, such as byte tokens that
+    decode to the same replacement characters; argmax takes the first of
+    them on either device). Returns (each image's committed ids, {"topk": per chunk
+    each image's smallest top-k gap, "clip": its CLIP gap}, inf once the
+    image is done)."""
+    import numpy as np
+
+    from clipcap_tpu_torch.decode import clip_guided as CG
+
+    n, k = pixels.shape[0], CG_BRANCH
+    real = (CG._topk_iter, CG._candidates, CG._best_candidate)
+    chunks = []
+
+    def topk(x, kk):
+        vals, idx = real[0](x, kk + 1)
+        if x.shape[0] == n:  # level 0 of a new chunk
+            chunks.append(dict(levels=[], clip=[]))
+        chunks[-1]["levels"].append((vals[:, kk - 1] - vals[:, kk]).cpu())
+        return vals[:, :kk], idx[:, :kk]
+
+    def candidates(topk_levels, committed, done, *rest):
+        chunks[-1]["done"] = list(done)
+        return real[1](topk_levels, committed, done, *rest)
+
+    def best(scores):
+        below = scores[scores < scores.max()]
+        chunks[-1]["clip"].append(float(scores.max() - below.max()) if below.size
+                                  else float("inf"))
+        return real[2](scores)
+
+    CG._topk_iter, CG._candidates, CG._best_candidate = topk, candidates, best
+    try:
+        toks = clip_guided_tokens(torch, bundle, scoring, pixels, images, device)
+    finally:
+        CG._topk_iter, CG._candidates, CG._best_candidate = real
+    gaps = {"topk": [], "clip": []}
+    for c in chunks:
+        live = [i for i in range(n) if not c["done"][i]]
+        gaps["topk"].append([min(float(lv[i * k ** d:(i + 1) * k ** d].min())
+                                 for d, lv in enumerate(c["levels"]))
+                             if i in live else float("inf") for i in range(n)])
+        gaps["clip"].append([c["clip"][live.index(i)] if i in live else float("inf")
+                             for i in range(n)])
+    return toks, gaps
+
+
+def clip_guided_tokens(torch, bundle, scoring, pixels, images, device: str):
+    """What ClipGuidedCaptionSampler.sample_batch decodes for these images,
+    as token ids: the captioner's prefix of the pixels, the scorer's image
+    embeddings of the PIL images, and the tree search at the evaluate
+    CLI's settings."""
+    import numpy as np
+
+    from clipcap_tpu_torch.decode.clip_guided import generate_clip_guided_tokens
+
+    with torch.no_grad():
+        prefix = bundle.prefix_from_pixels(torch.from_numpy(pixels))
+    embs = scoring.embed_image(np.stack([scoring.preprocess_image(im) for im in images]))
+    return generate_clip_guided_tokens(bundle, scoring, embs, prefix,
+                                       max_decode_length=CG_MAX, look_ahead=CG_LOOK,
+                                       branching_factor=CG_BRANCH, device=device)
+
+
+def evaluate_path(torch, counters, card: str, work: Path, handles: dict, c_prof: dict):
+    """(g) checkpoint evaluation at full width, in f32 and bf16: a COCO
+    folder of 16 seeded JPEGs with 5 captions each, the f32 checkpoint and
+    the CLIP state dict of (f), and the same model cast to bf16, written by
+    the port's checkpoint writer and read back (every parameter bf16 and
+    bit-equal to what was written). cli.evaluate.main runs on each
+    checkpoint (16 images in chunks of 8: the no-beam sweep, the CLIP-guided
+    tree, CLIP scores and the validation loss), with the launch counters
+    set to 0 just before the two runs and read just after. Then: the first
+    chunk's loss against the port on the CPU, the CLIP-guided tokens of
+    two images against the CPU (a difference only from a chunk where the
+    CPU's top-k or CLIP choice is a near-tie), and per dtype the seconds
+    per image, a timed and profiled CLIP-guided chunk and a profiled
+    validator chunk; last, the main path's sampler call (c) on the bf16
+    model beside (c)'s f32 device time."""
+    import contextlib
+    import io
+    import math
+
+    import numpy as np
+
+    from clipcap_tpu_torch.cli import evaluate as eval_cli
+    from clipcap_tpu_torch.cli.loading import load_captioner
+    from clipcap_tpu_torch.data.coco import CocoImageDataset
+    from clipcap_tpu_torch.data.preprocessing import clip_preprocess, normalize_on_device
+    from clipcap_tpu_torch.eval import validator as V
+    from clipcap_tpu_torch.eval.clip_scoring import ClipScoring
+    from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+    from clipcap_tpu_torch.ops.kernels import fused_attention as FA
+    from clipcap_tpu_torch.tokenizers.clip_bpe import CLIPTokenizer
+    from clipcap_tpu_torch.train.checkpoints import save_checkpoint
+
+    t_phase = time.perf_counter()
+    f32 = handles["bundle"]
+    write_coco(work / "coco", EVAL_IMAGES, seed=17)
+    dataset = CocoImageDataset(str(work / "coco" / "captions.json"), str(work / "coco" / "images"))
+    items = [dataset[i] for i in range(EVAL_IMAGES)]
+    images = [it["image"] for it in items]
+    gts_by_id = dataset.get_index().get_captions_by_image_id()
+    gts = [gts_by_id[it["image_entry"].id] for it in items]
+    size = f32.vit_cfg.image_size
+    pixels = np.stack([clip_preprocess(im, size) for im in images])
+    scoring = ClipScoring(handles["visual"], handles["text"],
+                          CLIPTokenizer.from_merges_file(str(work / "clip_merges.txt")))
+
+    # the bf16 checkpoint: written by the port's writer, read back bit for bit
+    t0 = time.perf_counter()
+    bf16_model = copy.deepcopy(f32.model).to(torch.bfloat16)
+    save_checkpoint(str(work / "ckpt_bf16"), bf16_model, f32.cap_cfg, f32.lm_cfg)
+    loaded, cap_cfg, lm_cfg, vit_cfg = load_captioner(str(work / "ckpt_bf16"), device="cuda")
+    io_s = time.perf_counter() - t0
+    want = bf16_model.state_dict()
+    for name, p in loaded.state_dict().items():
+        check(p.is_cuda and p.dtype == torch.bfloat16 and want[name].dtype == torch.bfloat16
+              and torch.equal(p.view(torch.int16), want[name].view(torch.int16)),
+              f"bf16 checkpoint: loaded {name} is not the bf16 bits that were written")
+    del want, bf16_model
+    bf16 = CaptionerBundle(loaded, cap_cfg, lm_cfg, f32.tokenizer, vit_cfg=vit_cfg, device="cuda")
+    say(f"(g) bf16 checkpoint: {sum(p.numel() for p in loaded.parameters()) / 1e6:.1f}M "
+        f"parameters written by the port's writer and read back onto the card in {io_s:.1f} s; "
+        f"every one bf16 and bit-equal to what was written")
+
+    def args(ckpt):
+        return ["--checkpoint_path", str(work / ckpt), "--tokenizer_vocab_dir", str(work / "vocab"),
+                "--clip_model", "ViT-B/32", "--clip_checkpoint", str(work / "clip.pt"),
+                "--clip_merges", str(work / "clip_merges.txt"),
+                "--valid_json_path", str(work / "coco" / "captions.json"),
+                "--image_folder_path", str(work / "coco" / "images"),
+                "--max_samples", str(EVAL_IMAGES), "--eval_batch_size", str(EVAL_CHUNK),
+                "--device", "cuda"]
+
+    # the evaluate path, its launches counted; each validator chunk timed
+    real_process, chunk_s = V.CocoCaptionValidator.process, []
+
+    def timed_process(self, bundle, batch):
+        t0 = time.perf_counter()
+        real_process(self, bundle, batch)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    counters(reset=True)
+    for d in FA.LAUNCHES_BY_DTYPE:
+        FA.LAUNCHES_BY_DTYPE[d] = 0
+    runs = {}
+    V.CocoCaptionValidator.process = timed_process
+    try:
+        for name, ckpt in (("f32", "ckpt"), ("bf16", "ckpt_bf16")):
+            before, by_dtype = counters(), dict(FA.LAUNCHES_BY_DTYPE)
+            chunk_s.clear()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                results = eval_cli.main(args(ckpt))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = counters()
+            runs[name] = dict(results=results, printed=out.getvalue(), secs=secs,
+                              chunk_s=list(chunk_s),
+                              rise={k: after[k] - before[k] for k in after},
+                              k1_dtype={d: FA.LAUNCHES_BY_DTYPE[d] - by_dtype[d]
+                                        for d in by_dtype})
+    finally:
+        V.CocoCaptionValidator.process = real_process
+    launches = counters()
+
+    n_chunks = math.ceil(EVAL_IMAGES / EVAL_CHUNK)
+    layers = f32.vit_cfg.layers
+    # per chunk: the no-beam and the CLIP-guided prefix encodes, the loss's
+    # encode, the scorer's batch encode for CLIP-guided, and one scorer
+    # encode per image and sampler
+    encodes = {"captioner": 3 * n_chunks, "scorer": n_chunks * (1 + 2 * EVAL_CHUNK)}
+    for name, r in runs.items():
+        printed = json.loads(r["printed"][r["printed"].rindex("\n{") + 1:])
+        check(sorted(printed) == ["clip_score", "sampler_scores", "validation_loss"]
+              and sorted(printed["sampler_scores"]) == ["clip_guided", "nobeam"],
+              f"({name}) evaluate printed {sorted(printed)}")
+        check(math.isfinite(printed["validation_loss"]) and math.isfinite(printed["clip_score"])
+              and all(math.isfinite(v) for s in printed["sampler_scores"].values()
+                      for v in s.values()),
+              f"({name}) a printed score is not finite: {printed}")
+        check(len(r["results"]["captions"]) == EVAL_IMAGES and len(r["chunk_s"]) == n_chunks,
+              f"({name}) {len(r['results']['captions'])} images in {len(r['chunk_s'])} chunks")
+        want_k1 = layers * (encodes["captioner"] + encodes["scorer"])
+        want_k2 = 75 * n_chunks  # NoBeamCaptionSampler: 75 steps per sample_batch
+        want_bf16 = layers * encodes["captioner"] if name == "bf16" else 0
+        check(r["rise"]["fused_attention"] == want_k1,
+              f"({name}) K1 launched {r['rise']['fused_attention']} times, want {want_k1}")
+        check(r["k1_dtype"]["bfloat16"] == want_bf16,
+              f"({name}) K1 launched {r['k1_dtype']['bfloat16']} times in bf16, want {want_bf16}")
+        check(r["rise"]["fused_filter_sample"] == want_k2,
+              f"({name}) K2 launched {r['rise']['fused_filter_sample']} times, want {want_k2}")
+        r["printed_json"] = printed
+        r["s_per_image"] = sum(r["chunk_s"]) / EVAL_IMAGES
+        say(f"(g) cli.evaluate.main {name}: {EVAL_IMAGES} images in chunks of {EVAL_CHUNK} in "
+            f"{r['secs']:.1f} s (loading included); validator {r['s_per_image']:.3f} s per image "
+            f"(chunks {', '.join(f'{s:.2f}' for s in r['chunk_s'])} s); validation_loss "
+            f"{printed['validation_loss']:.6f}, clip_score {printed['clip_score']:.6f}, "
+            f"nobeam CIDEr {printed['sampler_scores']['nobeam']['CIDEr']:.4f}, clip_guided "
+            f"CIDEr {printed['sampler_scores']['clip_guided']['CIDEr']:.4f}; K1 "
+            f"+{r['rise']['fused_attention']} ({r['k1_dtype']['bfloat16']} in bf16), K2 "
+            f"+{r['rise']['fused_filter_sample']}")
+
+    # the validation loss: each chunk's again on the card, the first against the CPU
+    t_checks = time.perf_counter()
+    chunks = [range(i, min(i + EVAL_CHUNK, EVAL_IMAGES)) for i in range(0, EVAL_IMAGES, EVAL_CHUNK)]
+    card_losses = {name: [V.CocoCaptionValidator.caption_losses(b, pixels[list(c)],
+                                                                [gts[i] for i in c])
+                          for c in chunks] for name, b in (("f32", f32), ("bf16", bf16))}
+    for name, per_chunk in card_losses.items():
+        mean = float(np.mean([x for c in per_chunk for x in c]))
+        check(math.isclose(mean, runs[name]["printed_json"]["validation_loss"], rel_tol=1e-6),
+              f"({name}) the chunks' losses average {mean}, evaluate printed "
+              f"{runs[name]['printed_json']['validation_loss']}")
+    cpu = CaptionerBundle(copy.deepcopy(f32.model).cpu(), f32.cap_cfg, f32.lm_cfg, f32.tokenizer,
+                          vit_cfg=f32.vit_cfg, device="cpu")
+    first = list(chunks[0])
+    cpu_loss = V.CocoCaptionValidator.caption_losses(cpu, pixels[first], [gts[i] for i in first])
+    err = assert_close(torch, torch.tensor(card_losses["f32"][0]), torch.tensor(cpu_loss),
+                       *CARD_VS_CPU, "(g) first chunk's validation losses card vs CPU")
+    # the bf16 tolerance, from the f32 logits' scale on the first chunk's first round
+    enc = [f32.tokenizer.encode_text(g[0], add_bos=True, add_eos=True) for g in gts[:EVAL_CHUNK]]
+    toks = torch.zeros(len(enc), max(len(t) for t in enc), dtype=torch.long)
+    for j, t in enumerate(enc):
+        toks[j, :len(t)] = torch.tensor(t)
+    with torch.no_grad():
+        scale = float(f32.forward(toks, f32.encode_image(torch.from_numpy(pixels[first])))
+                      .abs().max())
+    loss_tol = 2 * BF16_LOGIT_STEPS * 2.0 ** -8 * scale
+    loss_diff = abs(runs["bf16"]["printed_json"]["validation_loss"]
+                    - runs["f32"]["printed_json"]["validation_loss"])
+    check(loss_diff <= loss_tol, f"(g) bf16 validation_loss is {loss_diff:.4g} from f32's, "
+          f"beyond {loss_tol:.4g}")
+    say(f"(g) validation loss: the first chunk's {len(cpu_loss)} losses on the card vs the CPU, max "
+        f"abs err {err:.3e} (atol/rtol {CARD_VS_CPU[0]}); bf16 {loss_diff:.4g} from f32 (tolerance "
+        f"2 x {BF16_LOGIT_STEPS} x 2^-8 x max|logit| {scale:.3f} = {loss_tol:.4g})")
+
+    # CLIP-guided: the first chunk on the card, timed and profiled per dtype;
+    # images 0-1 against the CPU in f32
+    first_imgs, first_pix = [images[i] for i in first], pixels[first]
+    timing = {}
+    t_checks = time.perf_counter() - t_checks
+    t_timing = time.perf_counter()
+    for name, b in (("f32", f32), ("bf16", bf16)):  # warm from the evaluate runs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = clip_guided_tokens(torch, b, scoring, first_pix, first_imgs, "cuda")
+        torch.cuda.synchronize()
+        cg_s = time.perf_counter() - t0
+        special = set(b.tokenizer.all_special_ids)
+        texts = [b.tokenizer.decode_tokens([t for t in c if t not in special]) for c in toks]
+        want = [e["sampling_results"][1]["captions"][0]["caption"]
+                for e in runs[name]["results"]["captions"][:EVAL_CHUNK]]
+        check(texts == want, f"({name}) the CLIP-guided chunk again gave other captions than "
+              f"cli.evaluate")
+        tree_chunks = math.ceil(max(len(c) for c in toks) / CG_LOOK)
+        prof = profile_call(torch, f"(g) {name} clip-guided chunk", lambda: clip_guided_tokens(
+            torch, b, scoring, first_pix, first_imgs, "cuda"), cg_s * 1e3)
+        validator = eval_cli.build_validator(b, scoring, dataset, EVAL_TOP_P, CG_BRANCH, CG_LOOK)
+        vprof = profile_call(torch, f"(g) {name} validator chunk",
+                             lambda: validator.process(b, [items[i] for i in first]),
+                             runs[name]["chunk_s"][0] * 1e3)
+        timing[name] = dict(s_per_image=runs[name]["s_per_image"], evaluate_s=runs[name]["secs"],
+                            clip_guided_chunk_s=cg_s, tree_chunks=tree_chunks,
+                            clip_guided_launches=prof["launches"],
+                            launches_per_tree_chunk=prof["launches"] / tree_chunks,
+                            clip_guided_busy_share=prof["busy_ms"] / prof["wall_ms"],
+                            validator_chunk_busy_share=vprof["busy_ms"] / vprof["wall_ms"],
+                            validator_chunk_busy_ms=vprof["busy_ms"],
+                            validation_loss=runs[name]["printed_json"]["validation_loss"])
+        say(f"(g) {name} on {card}: CLIP-guided chunk ({EVAL_CHUNK} images, branching "
+            f"{CG_BRANCH}, look-ahead {CG_LOOK}, {tree_chunks} tree chunks): {cg_s * 1e3:.1f} ms, "
+            f"{prof['launches']} launches = {prof['launches'] / tree_chunks:.1f} per tree chunk; "
+            f"validator chunk busy {vprof['busy_ms']:.1f} ms = "
+            f"{100 * vprof['busy_ms'] / vprof['wall_ms']:.1f}% of its profiled wall")
+        if name == "f32":
+            card_toks = toks
+    t_timing = time.perf_counter() - t_timing
+    cpu_scoring = ClipScoring(copy.deepcopy(handles["visual"]).cpu(),
+                              copy.deepcopy(handles["text"]).cpu(), scoring.tokenizer)
+    t0 = time.perf_counter()
+    cpu_toks, gaps = traced_clip_guided(torch, cpu, cpu_scoring, first_pix[:2], first_imgs[:2],
+                                        "cpu")
+    cpu_s = time.perf_counter() - t0
+    flips = 0
+    for i in range(2):
+        if card_toks[i] == cpu_toks[i]:
+            continue
+        chunk = min(first_difference(card_toks[i], cpu_toks[i]) // CG_LOOK,
+                    len(gaps["topk"]) - 1)
+        gap = min(gaps["topk"][chunk][i], gaps["clip"][chunk][i])
+        check(gap < FLIP_GAP, f"(g) CLIP-guided image {i} differs from the CPU in tree chunk "
+              f"{chunk}, where the CPU's smallest top-k or CLIP gap is {gap:.3e} (>= {FLIP_GAP})")
+        flips += 1
+    say(f"(g) CLIP-guided images 0-1 ({EVAL_CHUNK}-image chunk on the card) against the port on "
+        f"the CPU: near-tie flips {flips}; smallest CPU gap per tree chunk, top-k boundary "
+        f"{min(g for row in gaps['topk'] for g in row):.3e}, best CLIP score to the next "
+        f"lower one {min(g for row in gaps['clip'] for g in row):.3e}; CPU {cpu_s:.1f} s")
+    del cpu, cpu_scoring
+
+    # the main path's sampler call (c) on the bf16 model: 8 images x 9 top-p, 75 steps
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pix8 = normalize_on_device(torch.rand(8, 3, size, size, generator=gen, device="cuda"))
+    sampler = NoBeamCaptionSampler(top_p_values=TOP_P_SWEEP, device="cuda")
+    caps = sampler.sample_batch(bf16, pix8)  # warm
+    check(len(caps) == 8 and all(len(c) == len(TOP_P_SWEEP) for c in caps),
+          "(g) bf16 sample_batch returned the wrong number of captions")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.sample_batch(bf16, pix8)
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    prof = profile_call(torch, "(g) bf16 (c)", lambda: sampler.sample_batch(bf16, pix8), c_s * 1e3)
+    timing["bf16_main_sampler"] = dict(wall_ms=c_s * 1e3, busy_ms=prof["busy_ms"],
+                                       f32_busy_ms=c_prof["busy_ms"],
+                                       captions_per_s=8 * len(TOP_P_SWEEP) / c_s)
+    say(f"(g) main-path sampler call (c) on {card}, 8 images x {len(TOP_P_SWEEP)} top-p x 75 "
+        f"steps: bf16 device busy {prof['busy_ms']:.1f} ms (wall {c_s * 1e3:.1f} ms = "
+        f"{8 * len(TOP_P_SWEEP) / c_s:.2f} captions/s) beside f32 (c) {c_prof['busy_ms']:.1f} ms")
+    say(f"evaluate phase (g): {time.perf_counter() - t_phase:.1f} s (the two evaluate runs "
+        f"{runs['f32']['secs'] + runs['bf16']['secs']:.1f} s, the loss checks {t_checks:.1f} s, "
+        f"the timed and profiled chunks {t_timing:.1f} s, the CPU's CLIP-guided {cpu_s:.1f} s)")
+    return launches, timing
 
 
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
@@ -1168,7 +1558,9 @@ def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: host-side events of a 100k-launch call
+    # would take minutes to aggregate
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1238,13 +1630,24 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_launches, serve_rates = serving_path(torch, counters, bundle)
     say(f"serving phase (e): {time.perf_counter() - t0:.1f} s")
-    infer_launches, infer_rates = infer_path(torch, counters, bundle, card)
+    # (f) and (g) share the checkpoint, the CLIP state dict and the vocabulary
+    work = ROOT / "build" / "smoke_infer"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        infer_launches, infer_rates, handles = infer_path(torch, counters, bundle, card, work)
+        eval_launches, eval_rates = evaluate_path(torch, counters, card, work, handles,
+                                                  rates.pop("c_profile"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # each kernel that a path runs was launched there (K4 has no path)
     paths = {"fused_attention": {"main": main_launches["fused_attention"],
-                                 "infer": infer_launches["fused_attention"]},
+                                 "infer": infer_launches["fused_attention"],
+                                 "evaluate": eval_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
-                                     "infer": infer_launches["fused_filter_sample"]},
+                                     "infer": infer_launches["fused_filter_sample"],
+                                     "evaluate": eval_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
@@ -1270,6 +1673,7 @@ def main() -> int:
         f"{rates['captions_per_s']:.2f} captions/s (NoBeam sampler, 72 rows)")
     say(f"serving on {card}: " + json.dumps(serve_rates))
     say(f"infer on {card}: " + json.dumps(infer_rates))
+    say(f"evaluate on {card}: " + json.dumps(eval_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

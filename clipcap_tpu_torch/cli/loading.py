@@ -85,7 +85,14 @@ def load_clip_ranker(clip_model: str, checkpoint: str, merges_path: str, device:
 def load_captioner(checkpoint_path: str, device: str = "cuda"):
     """A trained ClipCap checkpoint (a directory of clipcap_config.json and
     consolidated.npz, train/checkpoints.py) -> (Captioner on `device`,
-    CaptionerConfig, LM config, ViTConfig or None)."""
+    CaptionerConfig, LM config, ViTConfig or None).
+
+    Each submodule (mapper, LM, visual) is built in the dtype its leaves
+    were stored in, so a bf16 checkpoint computes in bf16, and an f32
+    mapper beside a bf16 LM stays so. A submodule whose own leaves mix
+    float dtypes runs in f32, its bf16 leaves widened exactly: JAX keeps
+    each leaf's dtype and promotes op by op (bf16 with f32 gives f32), so
+    there every product that meets an f32 leaf runs in f32 too."""
     from .. import convert
     from ..models.captioner import Captioner
     from ..train.checkpoints import load_config, read_params
@@ -102,13 +109,17 @@ def load_captioner(checkpoint_path: str, device: str = "cuda"):
             vit_cfg = ViTConfig.clip_variant(cap_cfg.visual_encoder_variant)
     model = Captioner(cap_cfg, lm_cfg, vit_cfg=vit_cfg, device=device)
     convert.load(model, convert.captioner_state_dict(params))
+    for sub in (model.mapper, model.lm, model.visual):
+        if sub is not None and len({p.dtype for p in sub.parameters()}) > 1:
+            sub.float()
     return model, cap_cfg, lm_cfg, vit_cfg
 
 
 def load_captioner_bundle(checkpoint_path: str, tokenizer_vocab_dir: str,
-                          device: str = "cuda"):
+                          prefix_only: bool = False, device: str = "cuda"):
     """A trained ClipCap checkpoint and its LM's tokenizer files ->
-    CaptionerBundle on `device`."""
+    CaptionerBundle on `device`. `prefix_only` is JAX's keyword: it
+    affects training only and is ignored here, as in JAX."""
     from ..models.bundle import CaptionerBundle
     from ..tokenizers import create_tokenizer
 

@@ -4,9 +4,17 @@ The JAX parameters come in as a pytree of numpy arrays (nested dicts):
 layers stacked on a leading [L] axis, linear weights [in, out]. The port's
 modules hold one submodule per layer and nn.Linear weights [out, in]. This
 module owns every unstack and transpose; `load` copies the converted
-tensors into a module, which keeps its device and dtype. `captioner_params`
-goes the other way, from a port Captioner back to the JAX pytree layout
-(the layout of the checkpoint the port writes, train/checkpoints.py).
+tensors into a module, which keeps its device and takes the dtype each
+tensor was stored in. `captioner_params` goes the other way, from a port
+Captioner back to the JAX pytree layout (the layout of the checkpoint the
+port writes, train/checkpoints.py).
+
+bf16 on the host: numpy has no bf16. A JAX bf16 leaf is an `ml_dtypes`
+bfloat16 array, which `np.save` writes as 2-byte records and `np.load`
+gives back as `|V2` void records. Every 2-byte void array here is such a
+bf16 leaf: `to_torch` views its bits as int16, then as torch.bfloat16, and
+`to_numpy` writes a bf16 tensor back as `|V2` records, bit for bit.
+Transposes, indexing and stacks move the records unchanged.
 """
 
 from __future__ import annotations
@@ -18,6 +26,34 @@ import torch
 from torch import nn
 
 StateDict = Dict[str, np.ndarray]
+BF16_RECORD = np.dtype("V2")  # what np.load gives for a JAX bf16 leaf
+
+
+def is_bf16_record(value) -> bool:
+    """A 2-byte void array: a bf16 leaf as np.load gives it (or an
+    ml_dtypes bfloat16 array, whose numpy kind is void too)."""
+    dt = np.asarray(value).dtype
+    return dt.kind == "V" and dt.itemsize == 2
+
+
+def to_torch(value) -> torch.Tensor:
+    """A host array as a torch tensor in the dtype JAX would hold it in:
+    bf16 records become torch.bfloat16 bit for bit, and float64 becomes
+    float32 (jnp.asarray's canonical dtype while x64 is off)."""
+    arr = np.asarray(value)
+    if is_bf16_record(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
+    t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+    return t.float() if t.dtype == torch.float64 else t
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy: bf16 as `|V2` records (the inverse of
+    to_torch), every other dtype as itself."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_RECORD)
+    return t.numpy()
 
 
 def _ln(prefix: str, p: dict, layer=None) -> StateDict:
@@ -205,9 +241,9 @@ def gpt2_params(sd: StateDict, layers: int) -> dict:
 
 def captioner_params(model: nn.Module) -> dict:
     """A port Captioner (GPT-2 LM) -> the JAX package's captioner params
-    {"mapper", "lm", ["visual"]}, numpy on the host: the inverse of
-    captioner_state_dict."""
-    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    {"mapper", "lm", ["visual"]}, numpy on the host (bf16 as `|V2`
+    records): the inverse of captioner_state_dict."""
+    sd = {k: to_numpy(v) for k, v in model.state_dict().items()}
 
     def sub(prefix):
         return {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
@@ -221,17 +257,24 @@ def captioner_params(model: nn.Module) -> dict:
 
 def load(module: nn.Module, state: StateDict) -> nn.Module:
     """Copy a converted state dict into `module` (strict: every parameter
-    must be given, with its shape), keeping the module's device and dtype."""
+    must be given, with its shape). The module keeps its device; each
+    floating parameter takes the dtype its value was stored in (to_torch's:
+    bf16 stays bf16), as JAX keeps each leaf's stored dtype, so a module
+    built in f32 and loaded from bf16 values computes in bf16."""
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
         raise KeyError(f"converted params do not match the module: missing {missing}, "
                        f"unexpected {extra}")
+    params = dict(module.named_parameters())
     with torch.no_grad():
         for name, value in state.items():
-            t = torch.from_numpy(np.array(value))  # a writable, contiguous copy
+            t = to_torch(value)
             if tuple(t.shape) != tuple(own[name].shape):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(own[name].shape)}")
-            own[name].copy_(t)
+            if name in params and t.is_floating_point() and t.dtype != own[name].dtype:
+                params[name].data = t.to(own[name].device)
+            else:
+                own[name].copy_(t)
     return module

@@ -1,1 +1,2 @@
-"""Image preprocessing (PIL on the host, normalize_on_device on the device)."""
+"""Image preprocessing (PIL on the host, normalize_on_device on the device)
+and the COCO-json and folder datasets (coco.py)."""

@@ -40,7 +40,7 @@ class ClipScoring:
 
     @torch.no_grad()
     def embed_image(self, image_tensor) -> torch.Tensor:
-        x = torch.as_tensor(image_tensor).to(self.device)
+        x = torch.as_tensor(image_tensor).to(self.device, self.visual.cls.dtype)
         if x.dim() == 3:
             x = x[None]
         return self.visual(x, output="pooled").float()

@@ -1,23 +1,25 @@
-"""Caption samplers (port of NoBeamCaptionSampler and BeamCaptionSampler,
-clipcap_tpu/eval/samplers.py).
+"""Caption samplers (port of NoBeamCaptionSampler, ClipGuidedCaptionSampler
+and BeamCaptionSampler, clipcap_tpu/eval/samplers.py).
 
 A sampler takes the bundle and image tensors, runs visual encoder ->
 mapper, then a decode strategy: pixels in, captions out. NoBeamCaptionSampler
 (reference evaluate_model.py:374-393 over generate_no_beam :104-179) runs
 the top_p sweep as the batch of one KV-cached generate(): BOS is
 prepended, '.' stops count up to max_stops, any special token stops, and
-specials are stripped from the output. BeamCaptionSampler returns the best
-beam of decode/beam.py per image. The CLIP-guided sampler comes with a
-later slice.
+specials are stripped from the output. ClipGuidedCaptionSampler (reference
+:396-419) runs decode/clip_guided.py's lookahead. BeamCaptionSampler
+returns the best beam of decode/beam.py per image.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from ..decode.beam import beam_search, beam_search_batched, best_beam_text, best_beam_texts
+from ..decode.clip_guided import generate_clip_guided, generate_clip_guided_batch
 from ..decode.engine import GenerationSettings, generate, trim_and_decode
 
 
@@ -110,6 +112,56 @@ class NoBeamCaptionSampler(CaptionSamplerBase):
         flat = trim_and_decode(self._generate(bundle, prefix, n_img), bundle.tokenizer,
                                strip_special=True)
         return [flat[i * n_p: (i + 1) * n_p] for i in range(n_img)]
+
+
+class ClipGuidedCaptionSampler(CaptionSamplerBase):
+    """CLIP-guided lookahead (decode/clip_guided.py), one caption per image.
+
+    sample_batch runs all N images in one generate_clip_guided_batch call
+    of up to N * branching_factor**(look_ahead-1) tree rows. The JAX
+    sampler splits a call at 512 tree rows, where the TPU compiler's layout
+    of the decode step turns slow; that limit is the TPU's, so one call here
+    may hold more rows than one call there. Chunking would change no
+    caption: images are independent."""
+
+    def __init__(self, clip_scoring, branching_factor: int = 3, look_ahead: int = 4,
+                 repetition_penalty: float = 1.2, device: str = "cuda"):
+        self.clip_scoring = clip_scoring
+        self.branching_factor = branching_factor
+        self.look_ahead = look_ahead
+        self.repetition_penalty = repetition_penalty
+        self.device = device
+
+    def get_description(self):
+        return (
+            f"ClipGuided(branching={self.branching_factor}, "
+            f"look_ahead={self.look_ahead}, rep_p={self.repetition_penalty})"
+        )
+
+    def _kw(self) -> dict:
+        return dict(branching_factor=self.branching_factor, look_ahead=self.look_ahead,
+                    repetition_penalty_value=self.repetition_penalty, device=self.device)
+
+    def generate_captions(self, bundle, prefix, image_embedding, image) -> List[str]:
+        clip_image_embedding = self.clip_scoring.embed_image(
+            self.clip_scoring.preprocess_image(image))
+        return [generate_clip_guided(bundle, self.clip_scoring, clip_image_embedding[0], prefix,
+                                     **self._kw())]
+
+    def sample_batch(self, bundle, image_tensors, images) -> List[List[str]]:
+        """One clip-guided caption for each of N images (PIL `images`, which
+        the CLIP scorer preprocesses and encodes in one batch), every tree
+        step and CLIP text batch shared across them. Per-image results
+        equal sample() on the CPU in f32."""
+        image_tensors = torch.as_tensor(image_tensors)
+        if image_tensors.dim() == 3:
+            image_tensors = image_tensors[None]
+        prefix = bundle.prefix_from_pixels(image_tensors)
+        clip_embs = self.clip_scoring.embed_image(
+            np.stack([self.clip_scoring.preprocess_image(img) for img in images]))
+        caps = generate_clip_guided_batch(bundle, self.clip_scoring, clip_embs, prefix,
+                                          **self._kw())
+        return [[c] for c in caps]
 
 
 class BeamCaptionSampler(CaptionSamplerBase):

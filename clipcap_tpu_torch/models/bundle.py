@@ -1,10 +1,14 @@
 """CaptionerBundle: the runtime handle tying model, configs and tokenizer
 (port of clipcap_tpu/models/bundle.py: encode_image, project_prefix,
-prefix_from_pixels, embed_text, make_serving_engine).
+prefix_from_pixels, embed_text, forward, make_serving_engine).
 
 The JAX bundle's params dict becomes a `Captioner` module. The bundle
 runs on `device`, the card unless asked for the CPU; the model must lie
-there. Multi-chip and int8 hooks come with later slices.
+there. Each submodule computes in its own dtype: pixels and features are
+cast to the encoder's and the mapper's (a bf16 checkpoint computes in
+bf16 from the pixels on; JAX promotes f32 pixels against bf16 weights to
+f32 instead, so there the encoder and the mapper of a bf16 checkpoint run
+in f32). Multi-chip and int8 hooks come with later slices.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ class CaptionerBundle:
             raise ValueError("bundle has no visual encoder (precomputed-prefix mode)")
         mode = "tokens" if self.vit_cfg.style == "blip" else (
             "tokens_proj" if self.cap_cfg.mapper.use_all_features else "pooled")
-        return self.model.visual(pixels.to(self.device), output=mode)
+        visual = self.model.visual
+        return visual(pixels.to(self.device, visual.cls.dtype), output=mode)
 
     # --- mapper / LM ---------------------------------------------------------------
 
@@ -88,3 +93,10 @@ class CaptionerBundle:
     @torch.no_grad()
     def embed_text(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.model.lm.embed_tokens(tokens.to(self.device))
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, prefix: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Captioner.forward on the bundle's device: logits [B, P+T, V]."""
+        return self.model(tokens.to(self.device), prefix.to(self.device),
+                          None if mask is None else mask.to(self.device))

@@ -1,16 +1,19 @@
 """The ClipCap captioner: visual prefix + mapper + causal LM
-(port of clipcap_tpu/models/captioner.py: init, project_prefix, forward).
+(port of clipcap_tpu/models/captioner.py: init, project_prefix, forward,
+caption_loss).
 
 The JAX package's params dict {"mapper", "lm", ["visual"]} becomes the
 `Captioner` module with those submodules; the JAX `init` is its
 constructor. forward follows reference
 model.py:132-149: text-embedding lookup, mapper projection, concat
 [prefix_proj ‖ text_emb], prefix-extended attention mask, LM call.
+caption_loss is the training_step CE (model.py:203-209) with its quirks:
+-1 padding is the mask, and ignore_index 0 also drops genuine id-0 tokens.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,7 +41,7 @@ class Captioner(nn.Module):
         the optional L2 prefix normalization (reference dataset.py:167-168)."""
         if self.cfg.normalize_prefix:
             prefix = prefix / torch.linalg.vector_norm(prefix, dim=-1, keepdim=True)
-        return self.mapper(prefix)
+        return self.mapper(prefix.to(self.mapper.linear.weight.dtype))
 
     def forward(self, tokens: torch.Tensor, prefix: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, logits_slice=None) -> torch.Tensor:
@@ -53,3 +56,24 @@ class Captioner(nn.Module):
             dim=1)
         return self.lm(embedding_cat, attention_mask=full_mask, logits_slice=logits_slice)
 
+    def caption_loss(self, tokens: torch.Tensor, prefix: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """The training_step CE loss (reference model.py:203-209) of tokens
+        [B, T] padded with -1: the mask is tokens >= 0, negative ids become
+        0, and the head runs on the positions that predict the tokens only
+        (prefix_length-1 .. total-1). CE is logsumexp minus the picked
+        logit in f32; ignore_index is 0, so the zeroed padding and genuine
+        id-0 tokens drop out alike (a reference quirk), over a denominator
+        of max(valid, 1). Returns (loss, {"loss", "valid_tokens"})."""
+        mask = tokens >= 0
+        tokens = torch.where(mask, tokens, torch.zeros((), dtype=tokens.dtype,
+                                                       device=tokens.device))
+        p = self.cfg.mapper.prefix_length
+        total = p + tokens.shape[1]
+        logits = self(tokens, prefix, mask, logits_slice=(p - 1, total - 1))
+        logits_f = logits.float().reshape(-1, logits.shape[-1])
+        labels = tokens.reshape(-1).long()
+        nll = torch.logsumexp(logits_f, dim=-1) - logits_f.gather(1, labels[:, None])[:, 0]
+        valid = labels != 0
+        denom = valid.sum().clamp(min=1)
+        loss = torch.where(valid, nll, torch.zeros((), device=nll.device)).sum() / denom
+        return loss, {"loss": loss, "valid_tokens": denom}

@@ -17,7 +17,8 @@ base addresses) and raises ValueError for any other; nothing is copied.
 
 `fused_attention` launches the kernel for CUDA tensors and takes
 `fused_attention_plain`, the same function in plain PyTorch, only for CPU
-tensors. `LAUNCHES["fused_attention"]` counts kernel launches.
+tensors. `LAUNCHES["fused_attention"]` counts kernel launches, and
+`LAUNCHES_BY_DTYPE` the same launches by the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from . import _build
 
 LAUNCHES = {"fused_attention": 0}
+LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0}
 MAX_SEQ = 1024
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -109,6 +111,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                 _build.stream_handle(q.device))
     _build.raise_on_error("fused_attention", rc)
     LAUNCHES["fused_attention"] += 1
+    LAUNCHES_BY_DTYPE[str(q.dtype).split(".")[1]] += 1
     return out
 
 

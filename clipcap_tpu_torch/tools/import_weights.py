@@ -24,10 +24,13 @@ StateDict = Dict[str, np.ndarray]
 
 
 def _np(x) -> np.ndarray:
-    """Accept torch tensors or numpy arrays."""
+    """Accept torch tensors or numpy arrays; floating values come out as
+    float32, the JAX converters' default dtype (a half-precision CLIP
+    state dict gives f32 towers, as there)."""
     if hasattr(x, "detach"):
         x = x.detach().cpu().numpy()
-    return np.asarray(x)
+    x = np.asarray(x)
+    return x.astype(np.float32, copy=False) if x.dtype.kind == "f" else x
 
 
 def _copy(sd: Mapping, pairs, transpose: bool = False) -> StateDict:

@@ -14,6 +14,14 @@ The JAX package saves Orbax directories, which need JAX to read. Its
 `consolidate(path, path + "/consolidated.npz")` writes the `.npz` beside
 them; the port reads that. `save_checkpoint` writes the same layout from
 a port Captioner, so the JAX package's `consolidate` format round-trips.
+
+Each leaf keeps its dtype. `consolidate` writes a bf16 leaf as 2-byte
+records (`np.asarray` of a JAX bf16 array is an ml_dtypes bfloat16
+array), which `np.load` gives back as `|V2`; `read_params` passes them on
+as such and `convert.load` turns them into torch.bfloat16 bit for bit.
+`save_checkpoint` writes a bf16 parameter as the same records (numpy
+writes their header as `|V2` where ml_dtypes writes `<V2`; both load as
+`|V2`), so a bf16 checkpoint round-trips bit for bit both ways.
 """
 
 from __future__ import annotations
@@ -79,7 +87,9 @@ def _unflatten(flat: dict) -> Any:
 
 def read_params(path: str) -> dict:
     """The parameter pytree of the checkpoint directory `path` (the
-    `params` subtree of the saved state when there is one), numpy arrays."""
+    `params` subtree of the saved state when there is one), numpy arrays
+    in their stored dtypes: a bf16 leaf is a `|V2` record array
+    (convert.is_bf16_record), since numpy has no bf16."""
     path = Path(path)
     npz = path / PARAMS_FILE
     if not npz.exists():
@@ -97,7 +107,11 @@ def read_params(path: str) -> dict:
 
 def save_checkpoint(path: str, model, cap_cfg, lm_cfg, train_cfg: Optional[Any] = None) -> None:
     """Write the port Captioner `model` as a checkpoint directory: its
-    parameters in the JAX layout under `params.` and the config JSON."""
+    parameters in the JAX layout under `params.` and the config JSON.
+    Every parameter is written in its own dtype, bf16 as the 2-byte
+    records `consolidate` writes; a model whose submodules differ in dtype
+    (an f32 mapper beside a bf16 LM) is written so, leaf by leaf, as JAX
+    writes a mixed pytree."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     flat: dict = {}

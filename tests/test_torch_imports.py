@@ -29,6 +29,9 @@ INFER_MODULES = ["clipcap_tpu_torch.decode.beam", "clipcap_tpu_torch.tokenizers.
                  "clipcap_tpu_torch.eval.rouge", "clipcap_tpu_torch.eval.meteor",
                  "clipcap_tpu_torch.eval.synonyms", "clipcap_tpu_torch.eval.spice",
                  "clipcap_tpu_torch.eval.ptb_tokenizer"]
+# checkpoint evaluation: the COCO reader, CLIP-guided decode, the validator and its CLI
+EVALUATE_MODULES = ["clipcap_tpu_torch.data.coco", "clipcap_tpu_torch.decode.clip_guided",
+                    "clipcap_tpu_torch.eval.validator", "clipcap_tpu_torch.cli.evaluate"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -79,7 +82,7 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
                          text=True, cwd=ROOT, env=_env(), timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    for name in SERVING_MODULES + INFER_MODULES:
+    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES:
         assert f"'{name}'" in out.stdout, name
 
 
@@ -88,7 +91,7 @@ def test_source_has_no_jax_or_jax_package_import():
     top = re.compile(r"^(import|from)\s+(PIL|regex|transformers)(\.|\s|$)", re.M)
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for name in SERVING_MODULES + INFER_MODULES:
+    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES:
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
