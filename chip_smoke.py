@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning and serving paths on one NVIDIA GPU.
+"""Drive the PyTorch port's captioning, serving, evaluation and training
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,11 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    computes the same function where there is one (SDPA for attention),
    beside the least time the card could take (the bound); K1 also at the
    encoders' batches of 1, 8 and 64 images, L2-cold, and in bf16 at the
-   main shape, at T=577 and at 1, 8 and 16 images; K2/K3/K4 at 1, 8, 9,
+   main shape, at T=577 and at 1, 8 and 16 images, and K1's gradient (the
+   autograd Function: the kernel's forward, the plain-torch backward)
+   against autograd through the plain version at B=16, T=50 and T=577 in
+   f32 and bf16, with the backward's device time beside the forward's and
+   SDPA's backward; K2/K3/K4 at 1, 8, 9,
    16, 64, 72 and 512 rows of V=50257
    (every cluster size the launcher picks, and each path's rows), on
    hard rows (ties, all equal, -inf columns, top-p near 0 and 1), for
@@ -53,7 +58,19 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    images' CLIP-guided captions against the CPU, and the bf16 loss near
    f32's; times and profiles a CLIP-guided chunk and a validator chunk per
    dtype, and the main path's sampler call on the bf16 model;
-8. prints one JSON line of kernels, the card line, and last
+8. drives the training path (cli/train.py) at full width (CLIP ViT-B/32,
+   the CLI's default mapper with --prefix_size 512, GPT-2 124M, batch 16,
+   bf16 compute, remat, AutoClip): 12 steps on seeded prefix shards in two
+   files, a resume from the step-7 checkpoint, 12 prefix-only steps; then
+   (g)'s COCO folder with (f)'s CLIP ViT-B/32, 3 steps and one validation,
+   and 2 steps with --train_visual_encoder, with the launch counters set to
+   0 just before these two runs and read just after; checks finite losses,
+   the metrics lines, the final checkpoint read back bit for bit, the
+   resumed step's loss, the frozen parts unchanged and the trained ones
+   moved, K1 per step and K2 in the validation; times and profiles a step
+   of each path, and holds one f32 step against the CPU and the bf16 loss
+   against f32's;
+9. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -284,6 +301,68 @@ def check_attention(torch, FA):
             f"plain {pms:.4f}, SDPA {lms:.4f}, bound {bms:.4f} ({bby})")
         out[key] = dict(shape=[bb, t, h, dh], ms=kms, plain_ms=pms, library_ms=lms,
                         bound_ms=bms, bound_by=bby)
+    return out
+
+
+# K1's backward (plain torch ops, as XLA differentiates the TPU kernel):
+# against autograd through the plain forward, the same operations in
+# another order; f32 at the forward's budget, bf16 one bf16 step
+K1_GRAD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+K1_GRAD_SHAPES = [(16, 50), (16, 577)]  # (h)'s batch: ViT-B/32, and BLIP ViT-B at 384 px
+
+
+def attention_backward_bound(b, t, h, dh, dtype):
+    """q, k, v and dO read once, dq, dk and dv written once; 10*T*T*dh
+    operations per (image, head): the scores recomputed, dP, dV, dQ, dK."""
+    nbytes = 7 * b * t * h * dh * (4 if dtype == "f32" else 2)
+    return bound(nbytes, 10 * b * h * t * t * dh, F32_OPS_PER_S if dtype == "f32"
+                 else BF16_OPS_PER_S)
+
+
+def check_attention_grad(torch, FA):
+    """K1's gradient on packed-qkv views at (h)'s shapes: the Function's
+    output carries a grad_fn, and its dq, dk, dv (the kernel's forward, the
+    plain backward) equal autograd through fused_attention_plain within
+    K1_GRAD_TOL; then the device times of the backward beside the kernel's
+    forward and SDPA's backward on the same inputs."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, dh = 12, 64
+    out = {}
+    for b, t in K1_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            qkv = torch.randn(b, t, 3 * h * dh, generator=gen, device="cuda").to(dtype)
+            q, k, v = (y.reshape(b, t, h, dh).requires_grad_()
+                       for y in qkv.chunk(3, dim=-1))
+            dout = torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype)
+            o = FA.fused_attention(q, k, v)
+            check(o.grad_fn is not None, "K1's output on CUDA has no grad_fn")
+            got = torch.autograd.grad(o, (q, k, v), dout)
+            want = torch.autograd.grad(FA.fused_attention_plain(q, k, v), (q, k, v), dout)
+            errs = [assert_close(torch, g, w, *K1_GRAD_TOL[name],
+                                 f"K1 backward d{n} B={b} T={t} {name}")
+                    for n, g, w in zip("qkv", got, want)]
+            qd, kd, vd = (x.detach() for x in (q, k, v))
+            fwd_ms = device_ms(torch, lambda: FA.fused_attention(qd, kd, vd), kernel="attn_kernel")
+            bwd_ms = device_ms(torch, lambda: FA.fused_attention_backward_plain(qd, kd, vd, dout),
+                               5)
+            qs, ks, vs = (x.transpose(1, 2).requires_grad_() for x in (qd, kd, vd))
+            so = F.scaled_dot_product_attention(qs, ks, vs)
+            dso = dout.transpose(1, 2)
+            lib_ms = device_ms(torch, lambda: torch.autograd.grad(so, (qs, ks, vs), dso,
+                                                                  retain_graph=True))
+            bms, bby = attention_backward_bound(b, t, h, dh, "f32" if name == "float32" else "bf16")
+            key = f"{name}_t{t}"
+            out[key] = dict(shape=[b, t, h, dh], max_abs_err=max(errs), backward_ms=bwd_ms,
+                            forward_ms=fwd_ms, library_backward_ms=lib_ms, bound_ms=bms,
+                            bound_by=bby)
+            say(f"K1 backward B={b} T={t} H={h} dh={dh} {name} (packed qkv views): dq/dk/dv max "
+                f"abs err {max(errs):.3e} (atol/rtol {K1_GRAD_TOL[name][0]}); device ms: "
+                f"backward {bwd_ms:.4f} (plain torch) beside the kernel's forward {fwd_ms:.4f}, "
+                f"SDPA backward {lib_ms:.4f}, bound {bms:.4f} ({bby})")
+            del qkv, q, k, v, dout, o, got, want, so
     return out
 
 
@@ -1547,6 +1626,348 @@ def evaluate_path(torch, counters, card: str, work: Path, handles: dict, c_prof:
     return launches, timing
 
 
+# --- 8. the training path -----------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_STEPS, RESUME_AT = 16, 12, 7  # `_latest` at step 7 only
+SHARD_ROWS, SHARD_WIDTH, SHARD_TOKENS = (100, 120), 512, 40  # 220 rows: 13 batches of 16
+PIXEL_STEPS, VISUAL_STEPS, VAL_IMAGES = 3, 2, 8
+TIMED_STEPS, CPU_BATCH = 5, 4
+# the next step's loss after a resume against the uninterrupted run's: the
+# forward from bit-equal parameters is deterministic on the card
+RESUME_RTOL = 1e-6
+
+
+def write_shards(folder: Path, seed: int) -> None:
+    """Seeded {prefixes,tokens}/*.npy shards in the preprocess tool's layout:
+    SHARD_ROWS rows per file (a batch of 16 straddles the boundary), f32
+    prefixes of CLIP ViT-B/32's width, GPT-2 ids padded with -1 after 8-40
+    tokens."""
+    import numpy as np
+
+    from clipcap_tpu_torch.data.npy_reader import write_npy_shard
+
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(SHARD_ROWS):
+        write_npy_shard(folder / "prefixes" / f"{i:03d}.npy",
+                        rng.normal(size=(n, SHARD_WIDTH)).astype(np.float32))
+        tokens = rng.integers(1, 50256, size=(n, SHARD_TOKENS)).astype(np.int64)
+        lengths = rng.integers(8, SHARD_TOKENS + 1, size=n)
+        tokens[np.arange(SHARD_TOKENS)[None] >= lengths[:, None]] = -1
+        write_npy_shard(folder / "tokens" / f"{i:03d}.npy", tokens)
+
+
+def train_metrics(out: Path):
+    """metrics.jsonl of a cli.train run: the logged loss by step, and every line."""
+    lines = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    return {r["step"]: r["loss"] for r in lines if "loss" in r}, lines
+
+
+def timed_train_step(torch, counters, label, step, state, batch):
+    """s per step of `step` on `batch` (a warm-up of 2, then TIMED_STEPS
+    steps between synchronizations), K1 launches per step, and a profile
+    (device activity only) of one more step."""
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    before = counters()["fused_attention"]
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / TIMED_STEPS
+    k1 = (counters()["fused_attention"] - before) / TIMED_STEPS
+    check(bool(torch.isfinite(m["loss"])), f"({label}) non-finite loss")
+    prof = profile_call(torch, f"(h) {label} train step", lambda: step(state, batch), s_step * 1e3)
+    return state, dict(s_per_step=s_step, steps_per_s=1 / s_step, launches_per_step=prof["launches"],
+                       busy_share=prof["busy_ms"] / (s_step * 1e3), busy_ms=prof["busy_ms"],
+                       k1_per_step=k1)
+
+
+def train_path(torch, counters, card: str, work: Path) -> tuple:
+    """(h) training at full width through cli.train.main on the card: CLIP
+    ViT-B/32 at 224 px, the CLI's default mapper (8 layers, 768 wide) with
+    --prefix_size 512, GPT-2 124M, seeded weights, batch 16, the CLI's
+    defaults (bf16 compute, remat, AutoClip, warmup 2000, AdamW with weight
+    decay 0.01).
+    (h1) seeded prefix shards in two files: 12 steps training mapper and LM
+    (a `_latest` checkpoint at step 7 and the final one), a resume from
+    step 7, and 12 prefix-only steps.
+    (h2) (g)'s COCO folder with (f)'s OpenAI-layout CLIP ViT-B/32: 3 steps
+    with one validation over 8 images scored by (f)'s CLIP, then 2 steps
+    with --train_visual_encoder; the launch counters set to 0 just before
+    these two runs and read just after.
+    Then make_train_step on its own: s per step, launches and busy share
+    per path, the encoder's gradients finite, and one f32 step (TF32 off)
+    on the card against the port on the CPU, and the bf16 step's loss
+    against f32's. Returns the (h2) launches and the measurements."""
+    import contextlib
+    import math
+
+    import numpy as np
+
+    from clipcap_tpu_torch.cli import train as train_cli
+    from clipcap_tpu_torch.cli.loading import load_captioner_bundle, load_state_dict
+    from clipcap_tpu_torch.core.config import TrainConfig, ViTConfig
+    from clipcap_tpu_torch.data.coco import BatchLoader, CocoCaptionDataset
+    from clipcap_tpu_torch.data.preprocessing import clip_preprocess
+    from clipcap_tpu_torch.data.token_prefix import TokenPrefixDataset
+    from clipcap_tpu_torch.models.captioner import Captioner
+    from clipcap_tpu_torch.tokenizers import create_tokenizer
+    from clipcap_tpu_torch.tools import import_weights as W
+    from clipcap_tpu_torch.train import train_step as TTS
+    from clipcap_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    write_shards(work / "shards", seed=19)
+    common = ["--tokenizer_vocab_dir", str(work / "vocab"), "--batch_size", str(TRAIN_BATCH),
+              "--epochs", "1", "--log_every_n_steps", "1", "--save_every_epochs", "0",
+              "--seed", "0", "--device", "cuda", "--prefix_size", str(SHARD_WIDTH)]
+    shards = common + ["--prefix_data_path", str(work / "shards"), "--max_steps", str(TRAIN_STEPS)]
+    coco = work / "coco"
+    pixels = common + ["--input_dataset", str(coco / "captions.json"),
+                       "--image_folder_path", str(coco / "images"),
+                       "--visual_encoder_type", "CLIP", "--visual_encoder_model_variant",
+                       "ViT-B/32", "--visual_checkpoint", str(work / "clip.pt"),
+                       "--save_every_steps", "0"]
+    secs = {}
+
+    def run(name, args):
+        out = work / f"train_{name}"
+        t0 = time.perf_counter()
+        with open(work / f"train_{name}.log", "w") as log, contextlib.redirect_stdout(log), \
+                contextlib.redirect_stderr(log):
+            res = train_cli.main(args + ["--output_dir", str(out)])
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        losses, lines = train_metrics(out)
+        check(all(math.isfinite(v) for v in losses.values()), f"(h) {name}: a loss is not finite")
+        return res, out, losses, lines
+
+    def fresh(args):
+        cap_cfg, lm_cfg, _ = train_cli.build_configs(train_cli.build_argparser().parse_args(args))
+        return Captioner(cap_cfg, lm_cfg, device="cuda", seed=0)
+
+    # (h1) 12 steps, mapper and LM trained: the logs, the final checkpoint, the resume
+    res, full_dir, losses, lines = run("full", shards + ["--save_every_steps", str(RESUME_AT)])
+    model = res["state"].model
+    check(sorted(losses) == list(range(1, TRAIN_STEPS + 1)) and len(lines) == TRAIN_STEPS
+          and all({"loss", "grad_norm_pre_clip", "grad_norm_post_clip", "autoclip_value",
+                   "steps_per_sec", "epoch", "step"} <= set(r) for r in lines),
+          f"(h1) metrics.jsonl holds {len(lines)} lines with steps {sorted(losses)}")
+    init = fresh(shards)
+    moved = {sub: any(not torch.equal(p.float(), q) for p, q in
+                      zip(getattr(model, sub).parameters(), getattr(init, sub).parameters()))
+             for sub in ("mapper", "lm")}
+    check(all(moved.values()), f"(h1) parameters that did not move: {moved}")
+    del init
+    loaded = load_captioner_bundle(str(full_dir / "demo_model_final"), str(work / "vocab"),
+                                   device="cuda")
+    want = model.state_dict()
+    for name, p in loaded.model.state_dict().items():
+        check(p.dtype == want[name].dtype and torch.equal(p, want[name]),
+              f"(h1) the final checkpoint's {name} differs from the trained parameter")
+    del loaded, want
+    res_r, resumed_dir, r_losses, _ = run("resumed", shards + [
+        "--save_every_steps", "0", "--resume_from", str(full_dir / "demo_model_latest")])
+    check(sorted(r_losses) == list(range(RESUME_AT + 1, TRAIN_STEPS + 1)),
+          f"(h1) the resumed run logged steps {sorted(r_losses)}")
+    nxt = RESUME_AT + 1
+    resume_err = abs(r_losses[nxt] - losses[nxt])
+    check(resume_err <= RESUME_RTOL * abs(losses[nxt]),
+          f"(h1) step {nxt} after the resume has loss {r_losses[nxt]}, the uninterrupted run "
+          f"{losses[nxt]}")
+    later = max(abs(r_losses[i] - losses[i]) for i in r_losses)
+    param_diff = max(float((p.detach().float() - q.detach().float()).abs().max()) for p, q in
+                     zip(res_r["state"].model.parameters(), model.parameters()))
+    say(f"(h1) cli.train.main, prefix shards ({'+'.join(map(str, SHARD_ROWS))} rows in two "
+        f"files), {TRAIN_STEPS} steps of {TRAIN_BATCH}: {secs['full']:.1f} s (two checkpoints "
+        f"included); losses {losses[1]:.4f} .. {losses[TRAIN_STEPS]:.4f}; mapper and LM moved; "
+        f"the final checkpoint reads back bit for bit; resumed from step {RESUME_AT} "
+        f"({secs['resumed']:.1f} s): step {nxt} loss {r_losses[nxt]!r} against {losses[nxt]!r} "
+        f"(|diff| {resume_err:.3e}, allowed {RESUME_RTOL} relative), steps {nxt}-{TRAIN_STEPS} "
+        f"within {later:.3e}, final parameters within {param_diff:.3e}")
+    del res, res_r, model
+    shutil.rmtree(full_dir), shutil.rmtree(resumed_dir)
+
+    res, po_dir, po_losses, _ = run("prefix_only", shards + ["--prefix_only",
+                                                             "--save_every_steps", "0"])
+    model, init = res["state"].model, fresh(shards + ["--prefix_only"])
+    for (name, p), q in zip(model.lm.named_parameters(), init.lm.parameters()):
+        check(p.dtype == torch.bfloat16 and torch.equal(p, q.to(torch.bfloat16)),
+              f"(h1) --prefix_only changed the LM's {name}")
+    check(any(not torch.equal(p, q) for p, q in zip(model.mapper.parameters(),
+                                                    init.mapper.parameters())),
+          "(h1) --prefix_only: the mapper did not move")
+    say(f"(h1) --prefix_only, {TRAIN_STEPS} steps: {secs['prefix_only']:.1f} s; losses "
+        f"{po_losses[1]:.4f} .. {po_losses[TRAIN_STEPS]:.4f}; the LM (bf16) bit for bit as "
+        f"initialised, the mapper moved")
+    del res, model, init
+    shutil.rmtree(po_dir)
+
+    # (h2) pixels: 3 steps and a validation, then 2 steps with the encoder trained
+    real_make, per_step = trainer.make_train_step, []
+
+    def counted_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def counted(state, batch):
+            before = counters()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            after = counters()
+            per_step.append({k: after[k] - before[k] for k in after})
+            return out
+        return counted
+
+    vit_cfg = ViTConfig.clip_variant("ViT-B/32")
+    clip_vit = {k: torch.from_numpy(np.asarray(v)) for k, v in W.clip_vit_from_openai_state_dict(
+        load_state_dict(str(work / "clip.pt")), vit_cfg).items()}
+    runs = {}
+    torch.cuda.synchronize()
+    counters(reset=True)
+    trainer.make_train_step = counted_make
+    try:
+        for name, extra in (
+                ("pixels", ["--max_steps", str(PIXEL_STEPS),
+                            "--valid_json_path", str(coco / "captions.json"),
+                            "--valid_image_folder_path", str(coco / "images"),
+                            "--limit_val_batches", str(VAL_IMAGES),
+                            "--val_clip_checkpoint", str(work / "clip.pt"),
+                            "--clip_merges", str(work / "clip_merges.txt"),
+                            "--validation_interval", str(PIXEL_STEPS)]),
+                ("train_visual", ["--max_steps", str(VISUAL_STEPS), "--train_visual_encoder"])):
+            per_step.clear()
+            before = counters()
+            res, out, r_losses, lines = run(name, pixels + extra)
+            after = counters()
+            visual = {n: p for n, p in res["state"].model.visual.named_parameters()}
+            runs[name] = dict(steps=list(per_step), losses=r_losses, lines=lines,
+                              rise={k: after[k] - before[k] for k in after},
+                              moved=[n for n, p in visual.items() if not torch.equal(
+                                  p.float().cpu(), clip_vit[n].to(p.dtype).float())],
+                              finite=all(bool(torch.isfinite(p).all()) for p in visual.values()),
+                              dtypes={str(p.dtype) for p in visual.values()})
+            del res, visual
+            shutil.rmtree(out)
+    finally:
+        trainer.make_train_step = real_make
+    launches = counters()
+
+    layers = vit_cfg.layers
+    for name, r in runs.items():
+        n_steps = PIXEL_STEPS if name == "pixels" else VISUAL_STEPS
+        # remat recomputes each checkpointed block's forward in the backward
+        want_k1 = layers * (2 if name == "train_visual" else 1)
+        check(len(r["steps"]) == n_steps and sorted(r["losses"]) == list(range(1, n_steps + 1)),
+              f"(h2) {name}: {len(r['steps'])} steps, losses at {sorted(r['losses'])}")
+        check(all(st["fused_attention"] == want_k1 and st["fused_filter_sample"] == 0
+                  for st in r["steps"]),
+              f"(h2) {name}: K1/K2 launches per step {[(st['fused_attention'], st['fused_filter_sample']) for st in r['steps']]}, want ({want_k1}, 0)")
+        r["validation"] = {k: r["rise"][k] - sum(st[k] for st in r["steps"]) for k in r["rise"]}
+    val = [x for x in runs["pixels"]["lines"] if "val/validation_loss" in x]
+    check(len(val) == 1 and math.isfinite(val[0]["val/validation_loss"])
+          and math.isfinite(val[0]["val/clip_score"]),
+          f"(h2) the validation logged {val}")
+    check(runs["pixels"]["validation"]["fused_filter_sample"] == 75
+          and runs["pixels"]["validation"]["fused_attention"] > 0,
+          f"(h2) the validation launched {runs['pixels']['validation']}, want K2 75 (one no-beam "
+          f"call of 75 steps) and K1")
+    check(runs["train_visual"]["validation"]["fused_attention"] == 0,
+          "(h2) K1 launched outside the steps of the run without validation")
+    check(not runs["pixels"]["moved"] and runs["pixels"]["dtypes"] == {"torch.bfloat16"},
+          f"(h2) the frozen encoder moved ({runs['pixels']['moved'][:3]}) or is not bf16")
+    check(len(runs["train_visual"]["moved"]) > 0 and runs["train_visual"]["finite"]
+          and runs["train_visual"]["dtypes"] == {"torch.float32"},
+          "(h2) --train_visual_encoder: the encoder did not move, or is not finite f32")
+    say(f"(h2) cli.train.main on (g)'s COCO folder with (f)'s CLIP ViT-B/32: {PIXEL_STEPS} steps "
+        f"and one validation of {VAL_IMAGES} images in {secs['pixels']:.1f} s (validation_loss "
+        f"{val[0]['val/validation_loss']:.4f}, clip_score {val[0]['val/clip_score']:.4f}); K1 "
+        f"{layers} per step, the validation K1 +{runs['pixels']['validation']['fused_attention']} "
+        f"K2 +{runs['pixels']['validation']['fused_filter_sample']}; the frozen encoder (bf16) "
+        f"unchanged. --train_visual_encoder, {VISUAL_STEPS} steps in "
+        f"{secs['train_visual']:.1f} s: K1 {2 * layers} per step ({layers} forward + {layers} "
+        f"recomputed under remat), {len(runs['train_visual']['moved'])} of the encoder's "
+        f"parameters moved, all finite")
+
+    # make_train_step on its own: each path's step timed and profiled
+    tokenizer = create_tokenizer("gpt2", str(work / "vocab"))
+    tokens_np, prefix_np = next(iter(TokenPrefixDataset(str(work / "shards"), TRAIN_BATCH)))
+    prefix_batch = {"tokens": torch.tensor(tokens_np, device="cuda"),
+                    "prefix": torch.tensor(prefix_np, device="cuda")}
+    loader = BatchLoader(CocoCaptionDataset(str(coco / "captions.json"), str(coco / "images"),
+                                            tokenizer, lambda im: clip_preprocess(im, vit_cfg.image_size),
+                                            max_token_length=96), TRAIN_BATCH, seed=0)
+    item = next(iter(loader))
+    pixel_batch = {"tokens": torch.tensor(item["tokens"], device="cuda"),
+                   "pixels": torch.tensor(item["image_tensor"], device="cuda")}
+    timing = {}
+    for label, args, batch, vcfg in (
+            ("prefix", shards, prefix_batch, None),
+            ("pixels", pixels, pixel_batch, vit_cfg),
+            ("train_visual", pixels + ["--train_visual_encoder"], pixel_batch, vit_cfg)):
+        cap_cfg, lm_cfg, kw = train_cli.build_configs(train_cli.build_argparser().parse_args(args))
+        train_cfg = TrainConfig(total_steps=1000, **kw)
+        state, tx = TTS.create_train_state(0, cap_cfg, lm_cfg, train_cfg, vit_cfg=vcfg,
+                                           device="cuda")
+        step = TTS.make_train_step(cap_cfg, lm_cfg, train_cfg, tx, visual_cfg=vcfg)
+        state, timing[label] = timed_train_step(torch, counters, label, step, state, batch)
+        if label == "train_visual":
+            _, grads, params = TTS.compute_grads(state.model, batch, tx.names, cap_cfg, train_cfg,
+                                                 vcfg)
+            vis = [g for n, g in zip(tx.names, grads) if n.startswith("visual.")]
+            check(len(vis) == len(list(state.model.visual.parameters()))
+                  and all(bool(torch.isfinite(g).all()) for g in vis)
+                  and any(bool(g.abs().max() > 0) for g in vis),
+                  "(h) --train_visual_encoder: the encoder's gradients are not finite and nonzero")
+        t = timing[label]
+        say(f"(h) {label} train step on {card}, batch {TRAIN_BATCH}: {t['s_per_step'] * 1e3:.1f} ms "
+            f"= {t['steps_per_s']:.2f} steps/s; {t['launches_per_step']} launches per step, device "
+            f"busy {t['busy_ms']:.1f} ms = {100 * t['busy_share']:.1f}% of the step; K1 "
+            f"{t['k1_per_step']:.0f} per step")
+        del state, tx, step
+
+    # the card against the CPU: one f32 step (TF32 off) from the same weights; bf16's loss
+    cap_cfg, lm_cfg, kw = train_cli.build_configs(train_cli.build_argparser().parse_args(shards))
+    small = {k: v[:CPU_BATCH] for k, v in prefix_batch.items()}
+    first = {}
+    for name, bf16, device in (("f32", False, "cuda"), ("cpu", False, "cpu"),
+                               ("bf16", True, "cuda")):
+        train_cfg = TrainConfig(total_steps=1000, **{**kw, "bf16_compute": bf16})
+        model = Captioner(cap_cfg, lm_cfg, device="cuda", seed=0).to(device)
+        state, tx = TTS.create_train_state(0, cap_cfg, lm_cfg, train_cfg, model=model,
+                                           device=device)
+        t0 = time.perf_counter()
+        _, m = TTS.make_train_step(cap_cfg, lm_cfg, train_cfg, tx)(
+            state, {k: v.to(device) for k, v in small.items()})
+        first[name] = {k: float(v) for k, v in m.items()}
+        first[name]["s"] = time.perf_counter() - t0
+        if name == "f32":
+            with torch.no_grad():
+                scale = float(model(small["tokens"].clamp(min=0), small["prefix"]).abs().max())
+        del model, state, tx
+    err = {k: abs(first["f32"][k] - first["cpu"][k]) for k in ("loss", "grad_norm_pre_clip")}
+    for k, e in err.items():
+        check(e <= CARD_VS_CPU[0] + CARD_VS_CPU[1] * abs(first["cpu"][k]),
+              f"(h) the first f32 step's {k} on the card {first['f32'][k]} against the CPU "
+              f"{first['cpu'][k]}")
+    bf16_tol = 2 * BF16_LOGIT_STEPS * 2.0 ** -8 * scale
+    bf16_diff = abs(first["bf16"]["loss"] - first["f32"]["loss"])
+    check(bf16_diff <= bf16_tol, f"(h) the bf16 step's loss is {bf16_diff:.4g} from f32's, beyond "
+          f"{bf16_tol:.4g}")
+    say(f"(h) one f32 step (TF32 off, batch {CPU_BATCH}) on the card against the port on the "
+        f"CPU: loss {first['f32']['loss']:.6f} vs {first['cpu']['loss']:.6f} (|diff| "
+        f"{err['loss']:.3e}), pre-clip grad norm {first['f32']['grad_norm_pre_clip']:.6f} vs "
+        f"{first['cpu']['grad_norm_pre_clip']:.6f} (|diff| {err['grad_norm_pre_clip']:.3e}; "
+        f"atol/rtol {CARD_VS_CPU[0]}); bf16 loss {first['bf16']['loss']:.6f}, {bf16_diff:.3e} "
+        f"from f32's (tolerance 2 x {BF16_LOGIT_STEPS} x 2^-8 x max|logit| {scale:.3f} = "
+        f"{bf16_tol:.4g}); CPU step {first['cpu']['s']:.1f} s")
+    say(f"training phase (h): {time.perf_counter() - t_phase:.1f} s (cli.train runs: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    return launches, dict(timing=timing, cli_s=secs, resume_loss_diff=resume_err,
+                          card_vs_cpu=err, bf16_loss_diff=bf16_diff,
+                          validation_loss=val[0]["val/validation_loss"])
+
+
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     """Where the time of one call goes: the device time of each kernel
     (torch.profiler, CUPTI), summed, as a share of the wall time of the same
@@ -1622,6 +2043,7 @@ def main() -> int:
         return {**FA.LAUNCHES, **FS.LAUNCHES}
 
     k1 = check_attention(torch, FA)
+    k1["backward"] = check_attention_grad(torch, FA)
     k234, k4_launches = check_sampler(torch, FS, S)
     bundle = make_bundle(torch)
     t0 = time.perf_counter()
@@ -1638,16 +2060,20 @@ def main() -> int:
         infer_launches, infer_rates, handles = infer_path(torch, counters, bundle, card, work)
         eval_launches, eval_rates = evaluate_path(torch, counters, card, work, handles,
                                                   rates.pop("c_profile"))
+        del handles
+        train_launches, train_rates = train_path(torch, counters, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each kernel that a path runs was launched there (K4 has no path)
     paths = {"fused_attention": {"main": main_launches["fused_attention"],
                                  "infer": infer_launches["fused_attention"],
-                                 "evaluate": eval_launches["fused_attention"]},
+                                 "evaluate": eval_launches["fused_attention"],
+                                 "train": train_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
                                      "infer": infer_launches["fused_filter_sample"],
-                                     "evaluate": eval_launches["fused_filter_sample"]},
+                                     "evaluate": eval_launches["fused_filter_sample"],
+                                     "train": train_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
@@ -1674,6 +2100,7 @@ def main() -> int:
     say(f"serving on {card}: " + json.dumps(serve_rates))
     say(f"infer on {card}: " + json.dumps(infer_rates))
     say(f"evaluate on {card}: " + json.dumps(eval_rates))
+    say(f"train on {card}: " + json.dumps(train_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

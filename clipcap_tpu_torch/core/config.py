@@ -1,7 +1,8 @@
 """Configuration dataclasses of the captioning main path.
 
 The port's own copies of `MapperConfig`, `GPT2Config`, `ViTConfig`,
-`CLIPTextConfig` and `CaptionerConfig` from clipcap_tpu/core/config.py, with the same fields,
+`CLIPTextConfig`, `CaptionerConfig` and `TrainConfig` from
+clipcap_tpu/core/config.py, with the same fields,
 defaults and JSON round trip (a test holds the two in step). The port keeps
 its own copies because the JAX package's `core/__init__.py` imports JAX.
 """
@@ -152,3 +153,33 @@ class CaptionerConfig(_JsonMixin):
             d["mapper"] = MapperConfig.from_dict(d["mapper"])
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig(_JsonMixin):
+    """Training-run knobs (reference train.py:49-96). weight_decay defaults
+    to 0.0 here, as in JAX, while cli/train.py and make_optimizer default
+    to 0.01."""
+
+    batch_size: int = 16
+    epochs: int = 3
+    optimizer_lr: float = 2e-5
+    weight_decay: float = 0.0
+    scheduler_warmup_steps: int = 2000
+    total_steps: int = 10000
+    autoclip_percentile: float = 10.0
+    autoclip_history: int = 50000
+    bf16_compute: bool = True  # reference precision=16 (train.py:280) -> bf16
+    gradient_clip_val: float = -1.0  # <0 => AutoClip (reference train.py:283)
+    accumulate_grad_batches: int = 1
+    remat: bool = True  # activation checkpointing (reference train.py:200)
+    max_token_length: int = 96
+    validation_interval: int = 1000
+    limit_val_batches: int = 100
+    save_every_epochs: int = 1
+    save_every_steps: int = 10000
+    seed: int = 42
+    mesh_data: int = -1  # -1 => all devices
+    mesh_model: int = 1
+    zero_shard_params: bool = False  # ZeRO-style param/opt sharding over data axis
+    log_every_n_steps: int = 5

@@ -1,2 +1,3 @@
-"""Image preprocessing (PIL on the host, normalize_on_device on the device)
-and the COCO-json and folder datasets (coco.py)."""
+"""Image preprocessing (PIL on the host, normalize_on_device on the device),
+the COCO-json and folder datasets (coco.py), and the preprocessed-shard
+reader and dataset of training (npy_reader.py, token_prefix.py)."""

@@ -1,6 +1,6 @@
 """The ClipCap captioner: visual prefix + mapper + causal LM
 (port of clipcap_tpu/models/captioner.py: init, project_prefix, forward,
-caption_loss).
+caption_loss, trainable_filter).
 
 The JAX package's params dict {"mapper", "lm", ["visual"]} becomes the
 `Captioner` module with those submodules; the JAX `init` is its
@@ -9,11 +9,14 @@ model.py:132-149: text-embedding lookup, mapper projection, concat
 [prefix_proj ‖ text_emb], prefix-extended attention mask, LM call.
 caption_loss is the training_step CE (model.py:203-209) with its quirks:
 -1 padding is the mask, and ignore_index 0 also drops genuine id-0 tokens.
+Prefix-only training (CLIPCaptionPrefixOnly, model.py:219-226) is a
+gradient partition, not a subclass: `trainable_filter` marks which
+parameters receive gradients and optimizer state.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,8 +47,10 @@ class Captioner(nn.Module):
         return self.mapper(prefix.to(self.mapper.linear.weight.dtype))
 
     def forward(self, tokens: torch.Tensor, prefix: torch.Tensor,
-                mask: Optional[torch.Tensor] = None, logits_slice=None) -> torch.Tensor:
-        """Logits [B, P+T, V] (or the logits_slice positions of them)."""
+                mask: Optional[torch.Tensor] = None, logits_slice=None,
+                remat: bool = False) -> torch.Tensor:
+        """Logits [B, P+T, V] (or the logits_slice positions of them);
+        remat checkpoints the LM's blocks, as in JAX (the mapper is not)."""
         embedding_text = self.lm.embed_tokens(tokens)
         prefix_proj = self.project_prefix(prefix).to(embedding_text.dtype)
         embedding_cat = torch.cat([prefix_proj, embedding_text], dim=1)
@@ -54,9 +59,11 @@ class Captioner(nn.Module):
         full_mask = torch.cat(
             [torch.ones(prefix_proj.shape[:-1], dtype=mask.dtype, device=mask.device), mask],
             dim=1)
-        return self.lm(embedding_cat, attention_mask=full_mask, logits_slice=logits_slice)
+        return self.lm(embedding_cat, attention_mask=full_mask, logits_slice=logits_slice,
+                       remat=remat)
 
-    def caption_loss(self, tokens: torch.Tensor, prefix: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    def caption_loss(self, tokens: torch.Tensor, prefix: torch.Tensor,
+                     remat: bool = False) -> Tuple[torch.Tensor, dict]:
         """The training_step CE loss (reference model.py:203-209) of tokens
         [B, T] padded with -1: the mask is tokens >= 0, negative ids become
         0, and the head runs on the positions that predict the tokens only
@@ -69,7 +76,7 @@ class Captioner(nn.Module):
                                                        device=tokens.device))
         p = self.cfg.mapper.prefix_length
         total = p + tokens.shape[1]
-        logits = self(tokens, prefix, mask, logits_slice=(p - 1, total - 1))
+        logits = self(tokens, prefix, mask, logits_slice=(p - 1, total - 1), remat=remat)
         logits_f = logits.float().reshape(-1, logits.shape[-1])
         labels = tokens.reshape(-1).long()
         nll = torch.logsumexp(logits_f, dim=-1) - logits_f.gather(1, labels[:, None])[:, 0]
@@ -77,3 +84,12 @@ class Captioner(nn.Module):
         denom = valid.sum().clamp(min=1)
         loss = torch.where(valid, nll, torch.zeros((), device=nll.device)).sum() / denom
         return loss, {"loss": loss, "valid_tokens": denom}
+
+    def trainable_filter(self) -> Dict[str, bool]:
+        """{parameter name: whether it trains}. prefix_only reproduces
+        CLIPCaptionPrefixOnly (reference model.py:219-226): only the mapper
+        sees the optimizer; the visual encoder trains only with
+        train_visual_encoder (reference model.py:45-48)."""
+        train = {"mapper": True, "lm": not self.cfg.prefix_only,
+                 "visual": self.cfg.train_visual_encoder}
+        return {name: train[name.split(".", 1)[0]] for name, _ in self.named_parameters()}

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -41,3 +42,20 @@ def linear(fan_in: int, fan_out: int, *, bias: bool, gen: torch.Generator, devic
             if bias:
                 lin.bias.uniform_(-bound, bound, generator=gen)
     return lin
+
+
+def remat_call(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    """module(*args) under activation checkpointing (jax.checkpoint of a
+    scanned layer body): non-reentrant torch.utils.checkpoint, which keeps
+    only the inputs and recomputes the module's forward in the backward.
+    The module's parameters are passed to the checkpoint as inputs, so the
+    recompute sees the very tensors the forward saw, also where the caller
+    substituted them with torch.func.functional_call (the train step's bf16
+    casts), whose substitution has ended by the time the backward runs."""
+    names, tensors = zip(*module.named_parameters())
+    n = len(args)
+
+    def run(*xs):
+        return torch.func.functional_call(module, dict(zip(names, xs[n:])), xs[:n])
+
+    return checkpoint(run, *args, *tensors, use_reentrant=False)

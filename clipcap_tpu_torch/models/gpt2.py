@@ -32,7 +32,7 @@ from ..ops.activations import gelu_new
 from ..ops.attention import causal_bias, dot_product_attention, padding_bias
 from ..ops.layernorm import LayerNorm
 from ..ops.ring import paste_rows, refill_positions, ring_layout
-from .common import linear, make_generator, normal
+from .common import linear, make_generator, normal, remat_call
 
 
 class KVCache(NamedTuple):
@@ -65,6 +65,11 @@ class GPT2Block(nn.Module):
         x = x + self.c_proj(attn.reshape(x.shape).to(x.dtype))
         return x + self.mlp_proj(gelu_new(self.c_fc(self.ln2(x))))
 
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The whole block without a cache (JAX's `_block`)."""
+        q, k, v = self.qkv(x)
+        return self.finish(x, dot_product_attention(q, k, v, bias=bias))
+
 
 class GPT2(nn.Module):
     """GPT-2 with the JAX package's init: N(0, 0.02) weights, zero biases,
@@ -94,17 +99,18 @@ class GPT2(nn.Module):
         inputs_embeds: torch.Tensor,  # [B, T, D]
         attention_mask: Optional[torch.Tensor] = None,  # [B, T] 1 = attend
         logits_slice: Optional[Tuple[int, int]] = None,
+        remat: bool = False,
     ) -> torch.Tensor:
         """Full forward -> logits [B, T, V]; logits_slice=(start, stop)
-        runs the head on those positions only ([B, stop-start, V])."""
+        runs the head on those positions only ([B, stop-start, V]); remat
+        checkpoints each block (JAX's jax.checkpoint of the scan body)."""
         _, t, _ = inputs_embeds.shape
         x = inputs_embeds + self.wpe[:t][None]
         bias = causal_bias(t, t, device=x.device)
         if attention_mask is not None:
             bias = bias + padding_bias(attention_mask)
         for block in self.blocks:
-            q, k, v = block.qkv(x)
-            x = block.finish(x, dot_product_attention(q, k, v, bias=bias))
+            x = remat_call(block, x, bias) if remat else block(x, bias)
         if logits_slice is not None:
             x = x[:, logits_slice[0]: logits_slice[1]]
         return self.head(x)

@@ -21,7 +21,7 @@ from ..core.config import MapperConfig
 from ..ops.activations import is_gated, parse_act_fn
 from ..ops.attention import multi_head_attention
 from ..ops.layernorm import LayerNorm
-from .common import linear, make_generator
+from .common import linear, make_generator, remat_call
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, used by the reference mapper
 
@@ -75,9 +75,10 @@ class Mapper(nn.Module):
             MapperLayer(d, cfg.num_heads, cfg.mlp_ratio, cfg.act_fn, gen, device, dtype)
             for _ in range(cfg.num_layers))
 
-    def forward(self, prefix: torch.Tensor) -> torch.Tensor:
+    def forward(self, prefix: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """prefix [B, dim_clip] (pooled) or [B, clip_length, dim_clip]
-        (all features) -> [B, prefix_length, dim_embedding]."""
+        (all features) -> [B, prefix_length, dim_embedding]; remat
+        checkpoints each layer (JAX's transformer_apply(remat=True))."""
         cfg = self.cfg
         if cfg.use_all_features:
             if prefix.dim() != 3:
@@ -95,6 +96,6 @@ class Mapper(nn.Module):
         const = self.prefix_const.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([x, const], dim=1)
         for layer in self.layers:
-            x = layer(x)
+            x = remat_call(layer, x) if remat else layer(x)
         return x[:, visual_len:]
 

@@ -27,7 +27,7 @@ from ..ops.activations import gelu_exact, quick_gelu
 from ..ops.attention import dot_product_attention
 from ..ops.kernels.fused_attention import HEAD_DIMS, MAX_SEQ, fused_attention
 from ..ops.layernorm import LayerNorm
-from .common import linear, make_generator, normal
+from .common import linear, make_generator, normal, remat_call
 
 
 def patchify(pixels: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -100,8 +100,10 @@ class ViT(nn.Module):
         self.proj = (normal((d, cfg.output_dim), scale, gen, device, dtype)
                      if cfg.style == "clip" and cfg.output_dim is not None else None)
 
-    def forward(self, pixels: torch.Tensor, output: Optional[str] = None) -> torch.Tensor:
-        """pixels [B, 3, H, W], resized and normalized -> features."""
+    def forward(self, pixels: torch.Tensor, output: Optional[str] = None,
+                remat: bool = False) -> torch.Tensor:
+        """pixels [B, 3, H, W], resized and normalized -> features; remat
+        checkpoints each block (JAX's apply(remat=True))."""
         cfg = self.cfg
         if output is None:
             output = "pooled" if cfg.style == "clip" else "tokens"
@@ -113,7 +115,7 @@ class ViT(nn.Module):
         if cfg.style == "clip":
             x = self.ln_pre(x)
         for block in self.blocks:
-            x = block(x)
+            x = remat_call(block, x) if remat else block(x)
         if output == "pooled":
             pooled = self.ln_post(x[:, 0])
             return pooled @ self.proj if self.proj is not None else pooled

@@ -19,6 +19,14 @@ base addresses) and raises ValueError for any other; nothing is copied.
 `fused_attention_plain`, the same function in plain PyTorch, only for CPU
 tensors. `LAUNCHES["fused_attention"]` counts kernel launches, and
 `LAUNCHES_BY_DTYPE` the same launches by the inputs' dtype.
+
+`fused_attention` is differentiable: an autograd Function whose forward is
+the kernel (or the plain version on the CPU) and whose backward is
+`fused_attention_backward_plain`, plain torch ops on either device. The
+JAX package has no Pallas backward (XLA differentiates there), so neither
+has the port a hand-written one. The backward recomputes the f32
+probabilities from the saved q, k and v (views, saved as they came: the
+gradients reach a packed qkv through autograd, as for any view).
 """
 
 from __future__ import annotations
@@ -115,11 +123,46 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fused_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   dout: torch.Tensor):
+    """(dq, dk, dv) of fused_attention_plain at (q, k, v) for the output
+    gradient `dout`, in the order of operations autograd takes through it:
+    the f32 probabilities P recomputed from q and k, dP = dO vᵀ (rounded to
+    v's dtype, as the cast of P in the forward rounds its gradient),
+    dv = P' ᵀ dO with P' the probabilities in v's dtype, the softmax's
+    dS = P (dP - rowsum(P dP)), and dq = dS k·dh^-0.5, dk = dSᵀ q·dh^-0.5,
+    each in its input's dtype."""
+    dh = q.shape[-1]
+    scale = dh**-0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    probs = torch.softmax(scores, dim=-1)
+    do = dout.float()
+    dprobs = torch.einsum("bqhd,bkhd->bhqk", do, vf).to(v.dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs.to(v.dtype).float(), do)
+    ds = probs * (dprobs - (probs * dprobs).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return fused_attention_plain(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return fused_attention_backward_plain(*ctx.saved_tensors, dout)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bidirectional attention over [B, T, H, dh]; returns [B, T, H, dh].
 
     CUDA tensors launch the kernel (or raise), which writes a contiguous
-    output; CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v)
-    return _launch(q, k, v)
+    output; CPU tensors take the plain version. Differentiable in q, k and
+    v through fused_attention_backward_plain."""
+    return _FusedAttention.apply(q, k, v)

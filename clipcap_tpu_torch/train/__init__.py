@@ -1,1 +1,3 @@
-"""Checkpoints (the training loop comes with ROADMAP.md's training item)."""
+"""Training: the train step (train_step.py) with AdamW (optim.py) and
+AutoClip (autoclip.py), the loop (trainer.py) and the checkpoints
+(checkpoints.py)."""

@@ -1,5 +1,6 @@
-"""The checkpoint the port reads and writes (port of the JAX-free half of
-clipcap_tpu/train/checkpoints.py: `_config_payload`, `load_config` and the
+"""The checkpoint the port reads and writes (port of
+clipcap_tpu/train/checkpoints.py: `_config_payload`, `load_config`,
+`save_checkpoint`, `restore_checkpoint` and `CheckpointSaver`, in the
 layout of `consolidate`).
 
 A checkpoint is a directory holding
@@ -8,12 +9,21 @@ A checkpoint is a directory holding
 - `consolidated.npz`: one array per leaf of the saved state, under its
   "."-joined pytree path (`params.mapper.linear.w`, list indices as
   numbers), in the JAX package's parameter layout (layers stacked on a
-  leading [L] axis, linear weights [in, out]).
+  leading [L] axis, linear weights [in, out]). A train state adds, beside
+  `params.`, what a resume needs: `step`, `opt_state.count`, the Adam
+  moments `opt_state.mu.NAME` and `opt_state.nu.NAME` of the trainable
+  parameters under the port's parameter names, and the AutoClip ring
+  `autoclip.history`, `autoclip.count`, `autoclip.pos`. The loaders read
+  `params.` alone, so a trained checkpoint serves cli.infer and
+  cli.evaluate as it is. The moments are in the port's layout, not in
+  optax's consolidated opt_state, which the port does not read.
 
 The JAX package saves Orbax directories, which need JAX to read. Its
 `consolidate(path, path + "/consolidated.npz")` writes the `.npz` beside
 them; the port reads that. `save_checkpoint` writes the same layout from
 a port Captioner, so the JAX package's `consolidate` format round-trips.
+The names JAX's CheckpointSaver gives (`{prefix}_epoch_{e}`,
+`{prefix}_latest`, `{prefix}_final`) are directories here too.
 
 Each leaf keeps its dtype. `consolidate` writes a bf16 leaf as 2-byte
 records (`np.asarray` of a JAX bf16 array is an ml_dtypes bfloat16
@@ -85,11 +95,9 @@ def _unflatten(flat: dict) -> Any:
     return listify(root)
 
 
-def read_params(path: str) -> dict:
-    """The parameter pytree of the checkpoint directory `path` (the
-    `params` subtree of the saved state when there is one), numpy arrays
-    in their stored dtypes: a bf16 leaf is a `|V2` record array
-    (convert.is_bf16_record), since numpy has no bf16."""
+def _npz(path) -> Path:
+    """The .npz of the checkpoint directory `path`; an Orbax directory
+    without one, or no checkpoint at all, raises FileNotFoundError."""
     path = Path(path)
     npz = path / PARAMS_FILE
     if not npz.exists():
@@ -100,13 +108,24 @@ def read_params(path: str) -> dict:
                 f"clipcap_tpu.train.checkpoints.consolidate({str(path)!r}, "
                 f"{str(npz)!r}), then load it here.")
         raise FileNotFoundError(f"no checkpoint at {path}: {npz} does not exist")
-    with np.load(npz, allow_pickle=False) as data:
-        state = _unflatten({k: data[k] for k in data.files})
+    return npz
+
+
+def read_params(path: str) -> dict:
+    """The parameter pytree of the checkpoint directory `path` (the
+    `params` subtree of the saved state when there is one), numpy arrays
+    in their stored dtypes: a bf16 leaf is a `|V2` record array
+    (convert.is_bf16_record), since numpy has no bf16."""
+    with np.load(_npz(path), allow_pickle=False) as data:
+        # a train state's moments and AutoClip ring are not read
+        keys = [k for k in data.files if k.startswith("params.")] or data.files
+        state = _unflatten({k: data[k] for k in keys})
     return state["params"] if isinstance(state, dict) and "params" in state else state
 
 
-def save_checkpoint(path: str, model, cap_cfg, lm_cfg, train_cfg: Optional[Any] = None) -> None:
-    """Write the port Captioner `model` as a checkpoint directory: its
+def save_checkpoint(path: str, state, cap_cfg, lm_cfg, train_cfg: Optional[Any] = None) -> None:
+    """Write a port Captioner, or a train state (train/train_step.TrainState:
+    its `model` and what a resume needs), as a checkpoint directory: the
     parameters in the JAX layout under `params.` and the config JSON.
     Every parameter is written in its own dtype, bf16 as the 2-byte
     records `consolidate` writes; a model whose submodules differ in dtype
@@ -114,8 +133,82 @@ def save_checkpoint(path: str, model, cap_cfg, lm_cfg, train_cfg: Optional[Any] 
     writes a mixed pytree."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
+    model = getattr(state, "model", state)
     flat: dict = {}
     _flatten("", {"params": convert.captioner_params(model)}, flat)
+    if model is not state:
+        names = [n for n, keep in model.trainable_filter().items() if keep]
+        flat["step"] = convert.to_numpy(state.step)
+        flat["opt_state.count"] = convert.to_numpy(state.opt_state.count)
+        for key, moments in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+            for name, m in zip(names, moments):
+                flat[f"opt_state.{key}.{name}"] = convert.to_numpy(m)
+        for key in ("history", "count", "pos"):
+            flat[f"autoclip.{key}"] = convert.to_numpy(getattr(state.autoclip, key))
     np.savez(path / PARAMS_FILE, **flat)
     (path / CONFIG_FILE).write_text(
         json.dumps(_config_payload(cap_cfg, lm_cfg, train_cfg), indent=2))
+
+
+def restore_checkpoint(path: str, template):
+    """The train state saved at `path`, restored onto `template` (a
+    TrainState of the same configuration, train_step.create_train_state):
+    its model's parameters are overwritten in place, each in its stored
+    dtype, and the moments, AutoClip ring and step are read onto the
+    model's device. Raises for a checkpoint without a train state (one
+    written from a bare Captioner) and, with read_params' message, for an
+    Orbax directory."""
+    model = template.model
+    device = next(model.parameters()).device
+    with np.load(_npz(path), allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files}
+    if "step" not in flat:
+        raise KeyError(f"{path} holds parameters only, no train state to resume from")
+    params = _unflatten({k: v for k, v in flat.items() if k.startswith("params.")})["params"]
+    convert.load(model, convert.captioner_state_dict(params))
+
+    def tensor(key):
+        return convert.to_torch(flat[key]).to(device)
+
+    names = [n for n, keep in model.trainable_filter().items() if keep]
+    missing = [n for n in names if f"opt_state.mu.{n}" not in flat]
+    if missing:
+        raise KeyError(f"{path} has no Adam moments for {missing[:3]}...: it was saved by a run "
+                       f"that trained other parameters")
+    opt_state = template.opt_state._replace(
+        count=tensor("opt_state.count"),
+        mu=[tensor(f"opt_state.mu.{n}") for n in names],
+        nu=[tensor(f"opt_state.nu.{n}") for n in names])
+    autoclip = type(template.autoclip)(*(tensor(f"autoclip.{k}")
+                                         for k in ("history", "count", "pos")))
+    return template._replace(opt_state=opt_state, autoclip=autoclip, step=tensor("step"))
+
+
+class CheckpointSaver:
+    """Epoch / step-interval / final checkpoint policy (reference
+    train.py:20-47): `{prefix}_epoch_{e}` every save_every_n_epochs epochs,
+    an overwritten `{prefix}_latest` every save_every_n_steps steps, and
+    `{prefix}_final`."""
+
+    def __init__(self, output_path: str, filename_prefix: str, save_every_n_epochs: int = 1,
+                 save_every_n_steps: Optional[int] = 1000):
+        self.output_path = Path(output_path)
+        self.output_path.mkdir(exist_ok=True, parents=True)
+        self.filename_prefix = filename_prefix
+        self.save_every_n_epochs = save_every_n_epochs
+        self.save_every_n_steps = save_every_n_steps
+
+    def _save(self, name: str, state, **cfgs):
+        save_checkpoint(str(self.output_path / name), state, **cfgs)
+
+    def on_epoch_end(self, epoch: int, state, **cfgs):
+        if self.save_every_n_epochs > 0 and epoch % self.save_every_n_epochs == 0:
+            self._save(f"{self.filename_prefix}_epoch_{epoch}", state, **cfgs)
+
+    def on_step(self, step: int, state, **cfgs):
+        if (self.save_every_n_steps and self.save_every_n_steps > 0
+                and step % self.save_every_n_steps == 0):
+            self._save(f"{self.filename_prefix}_latest", state, **cfgs)
+
+    def save_final(self, state, **cfgs):
+        self._save(f"{self.filename_prefix}_final", state, **cfgs)

@@ -32,6 +32,11 @@ INFER_MODULES = ["clipcap_tpu_torch.decode.beam", "clipcap_tpu_torch.tokenizers.
 # checkpoint evaluation: the COCO reader, CLIP-guided decode, the validator and its CLI
 EVALUATE_MODULES = ["clipcap_tpu_torch.data.coco", "clipcap_tpu_torch.decode.clip_guided",
                     "clipcap_tpu_torch.eval.validator", "clipcap_tpu_torch.cli.evaluate"]
+# training: the step, optimizer, AutoClip, loop, shard reader, logger and CLI
+TRAIN_MODULES = ["clipcap_tpu_torch.train.autoclip", "clipcap_tpu_torch.train.optim",
+                 "clipcap_tpu_torch.train.train_step", "clipcap_tpu_torch.train.trainer",
+                 "clipcap_tpu_torch.data.npy_reader", "clipcap_tpu_torch.data.token_prefix",
+                 "clipcap_tpu_torch.utils.logging", "clipcap_tpu_torch.cli.train"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -82,7 +87,7 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
                          text=True, cwd=ROOT, env=_env(), timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES:
+    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES:
         assert f"'{name}'" in out.stdout, name
 
 
@@ -91,7 +96,7 @@ def test_source_has_no_jax_or_jax_package_import():
     top = re.compile(r"^(import|from)\s+(PIL|regex|transformers)(\.|\s|$)", re.M)
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES:
+    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES:
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
@@ -107,7 +112,7 @@ def test_source_has_no_jax_or_jax_package_import():
 
 
 @pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "ViTConfig", "CaptionerConfig",
-                                  "CLIPTextConfig"])
+                                  "CLIPTextConfig", "TrainConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     a, b = getattr(jax_config, name), getattr(torch_config, name)
     fa = [(f.name, f.type) for f in dataclasses.fields(a)]
