@@ -70,7 +70,20 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    moved, K1 per step and K2 in the validation; times and profiles a step
    of each path, and holds one f32 step against the CPU and the bf16 loss
    against f32's;
-9. prints one JSON line of kernels, the card line, and last
+9. drives int8 decode (phase (i), run before (h)): the int8 products
+   (torch._int_mm at every GPT2-XL linear shape and the paths' rows, the
+   f32 attention dots on int8 values) against exact CPU products; a
+   GPT2-XL captioner seeded on the card in bf16 and quantized by
+   bundle.enable_int8_decode() (every q and s against the CPU's, prefill
+   logits within 16 bf16 steps); the no-beam sweep on the bf16 and the
+   int8 LM (device ms and launches per step, busy share, captions/s);
+   int8 beam search at 64 images x beam 5 x 67 tokens through the
+   shared-prefix cache, its step bit-equal to the replicated cache's;
+   int8 serving of 256 requests on 64 slots, greedy and "fused_step"; the
+   int8 ViT-B/32 at B=64 (K1 12 a call, cosine to the float encode above
+   0.995); cli.infer, cli.serve and cli.evaluate with --int8_decode on
+   (f)'s checkpoint, the best beams of 2 images against the CPU;
+10. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -1049,17 +1062,19 @@ def traced_beam(torch, lm, prompt, device: str):
     return out, [sel for sel, _ in picks], torch.stack([gap for _, gap in picks], 1)
 
 
-def check_beam_vs_cpu(torch, bundle, prompt, card_out, card_sel, n_check: int = 2):
+def check_beam_vs_cpu(torch, bundle, prompt, card_out, card_sel, n_check: int = 2,
+                      gap_bound: float = FLIP_GAP, label: str = "(f)"):
     """The card's best beams of the first n_check images against the port
-    on the CPU. A best beam may differ only where the CPU's selection is a
-    near-tie: from the first step at which the card's selections `card_sel`
-    (traced_beam's, on the same batch of images as card_out) and the CPU's
-    differ, the CPU's gap there between the beam-th and (beam+1)-th
-    normalised candidates must be below FLIP_GAP (or, with the same
-    selections throughout, the gap between the two best final scores).
-    Returns the number of images with such a flip and the CPU seconds."""
+    on the CPU (the bundle's decode LM, int8 once enabled). A best beam may
+    differ only where the CPU's selection is a near-tie: from the first step
+    at which the card's selections `card_sel` (traced_beam's, on the same
+    batch of images as card_out) and the CPU's differ, the CPU's gap there
+    between the beam-th and (beam+1)-th normalised candidates must be below
+    `gap_bound` (or, with the same selections throughout, the gap between
+    the two best final scores). Returns the number of images with such a
+    flip and the CPU seconds."""
     t0 = time.perf_counter()
-    cpu_out, cpu_sel, cpu_gaps = traced_beam(torch, copy.deepcopy(bundle.lm).cpu(),
+    cpu_out, cpu_sel, cpu_gaps = traced_beam(torch, copy.deepcopy(bundle.lm_decode).cpu(),
                                              prompt[:n_check].cpu(), "cpu")
     cpu_s = time.perf_counter() - t0
 
@@ -1078,10 +1093,10 @@ def check_beam_vs_cpu(torch, bundle, prompt, card_out, card_sel, n_check: int = 
         else:
             top2 = cpu_out["scores"][i].topk(2).values
             gap, where = float(top2[0] - top2[1]), "the final ordering"
-        check(gap < FLIP_GAP, f"beam image {i}: best beam differs from the CPU at {where}, "
-              f"where the CPU's gap is {gap:.3e} (>= {FLIP_GAP})")
+        check(gap < gap_bound, f"{label} beam image {i}: best beam differs from the CPU at "
+              f"{where}, where the CPU's gap is {gap:.3e} (>= {gap_bound:.3e})")
         flips += 1
-    say(f"(f) beam check: the best beams of images 0-{n_check - 1} ({prompt.shape[0]}-image "
+    say(f"{label} beam check: the best beams of images 0-{n_check - 1} ({prompt.shape[0]}-image "
         f"batch on the card) against the port on the CPU: near-tie flips {flips}; smallest "
         f"CPU selection gap {float(cpu_gaps.min()):.3e}")
     return flips, cpu_s
@@ -1968,6 +1983,449 @@ def train_path(torch, counters, card: str, work: Path) -> tuple:
                           validation_loss=val[0]["val/validation_loss"])
 
 
+# --- 9. int8 decode at GPT2-XL width -------------------------------------------------
+
+XL_D, XL_IMAGES, XL_BEAM_IMAGES = 1600, 8, 64
+INT8_ROWS = (9, 16, 72, 320)  # the paths' rows: --no_beam, evaluate, the sweep, beam
+# card against CPU for the int8 LM (bf16 activations): a logit within this
+# many bf16 steps (2^-8) of the logits' scale; a greedy or beam choice may
+# differ only where the reference's gap is below the same bound (an int8
+# rounding of one activation moves its product by 1/127 of the row's scale)
+INT8_LOGIT_STEPS = 16
+INT8_SOLO = 4  # served int8 requests held against their solo runs
+
+
+def int8_bound(scale: float) -> float:
+    return INT8_LOGIT_STEPS * 2.0 ** -8 * scale
+
+
+def check_int8_products(torch):
+    """(i0) The int8 products on the card equal exact ones: int8_linear's
+    int32 product (torch._int_mm, rows zero-padded) at each GPT2-XL linear
+    shape and the paths' row counts, against the CPU's f64 product (exact:
+    every partial sum is an integer far below 2^53), compared as int64; and
+    the two f32 attention dots on int8 values at 320 rows and maxT 77
+    against int64 sums on the CPU. Row 0 of every operand is all 127, the
+    largest sums."""
+    from clipcap_tpu_torch.models.gpt2 import _int_dot
+    from clipcap_tpu_torch.ops.quant import int_mm
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def int8(*shape):
+        t = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        t[0] = 127
+        return t
+
+    d, vocab_pad = XL_D, 50264
+    shapes = {"c_attn": (d, 3 * d), "c_proj": (d, d), "c_fc": (d, 4 * d),
+              "mlp_proj": (4 * d, d), "lm_head": (d, vocab_pad)}
+    t0 = time.perf_counter()
+    for name, (k, n) in shapes.items():
+        w = int8(n, k)
+        w64 = w.cpu().double()
+        for m in INT8_ROWS:
+            x = int8(m, k)
+            got = int_mm(x, w)
+            want = (x.cpu().double() @ w64.t()).long()
+            check(got.dtype == torch.int32 and torch.equal(got.cpu().long(), want),
+                  f"(i0) int8 product {name} {k}->{n} at {m} rows differs from the exact one")
+    r, h, t, dh = 320, 25, 77, 64
+    q, keys, p, vals = int8(r, h, dh), int8(r, h, t, dh), int8(r, h, t), int8(r, h, t, dh)
+    scores = _int_dot(q[:, :, None], keys)[:, :, 0]
+    pv = _int_dot(p[:, :, None], vals.transpose(-1, -2))[:, :, 0]
+    want_s = (q.cpu().long()[:, :, None, :] * keys.cpu().long()).sum(-1)
+    want_pv = (p.cpu().long()[..., None] * vals.cpu().long()).sum(2)
+    for got, want, what in ((scores, want_s, "q.k"), (pv, want_pv, "p.v")):
+        check(got.dtype == torch.float32 and bool((got == got.round()).all())
+              and torch.equal(got.cpu().long(), want),
+              f"(i0) the int8 attention dot {what} at 320 rows, maxT 77 is not exact")
+    say(f"(i0) int8 products exact on the card: int8_linear's torch._int_mm at "
+        f"{', '.join(f'{k}->{n}' for k, n in shapes.values())} x {INT8_ROWS} rows equal the "
+        f"exact products; the attention dots q.k and p.v (f32 on int8 values, 320 rows x 25 "
+        f"heads x maxT 77) equal int64 sums ({time.perf_counter() - t0:.1f} s)")
+
+
+def check_int8_quantization(torch, lm, q8):
+    """(i1) Every q and s of the int8 LM on the card equals the port's
+    quantization of the same bf16 weights on the CPU; biases, wte, wpe and
+    the LayerNorms are the bf16 weights themselves. Returns the bytes."""
+    from clipcap_tpu_torch.models.gpt2 import INT8_LINEARS
+    from clipcap_tpu_torch.ops.quant import pad_channels, quantize_weight
+
+    def same(a, b):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+    for i, (blk, qb) in enumerate(zip(lm.blocks, q8.blocks)):
+        for name in INT8_LINEARS:
+            lin, qlin = getattr(blk, name), getattr(qb, name)
+            want = quantize_weight(lin.weight.cpu())
+            check(same(qlin.q, want["q"]) and same(qlin.s, want["s"]) and same(qlin.bias, lin.bias),
+                  f"(i1) block {i} {name}: q, s or bias differ from the CPU's quantization")
+        for name in ("ln1", "ln2"):
+            check(same(getattr(qb, name).weight, getattr(blk, name).weight),
+                  f"(i1) block {i} {name} differs")
+    head = quantize_weight(pad_channels(lm.wte.cpu().float()))
+    check(same(q8.lm_head.q, head["q"]) and same(q8.lm_head.s, head["s"]),
+          "(i1) lm_head differs from the CPU's quantization of wte")
+    check(same(q8.wte, lm.wte) and same(q8.wpe, lm.wpe) and same(q8.ln_f.weight, lm.ln_f.weight),
+          "(i1) wte, wpe or ln_f differ")
+    blocks = sum(b.numel() * b.element_size() for blk in q8.blocks for b in blk.buffers())
+    head_b = sum(b.numel() * b.element_size() for b in q8.lm_head.buffers())
+    return blocks, head_b, q8.wte.numel() * q8.wte.element_size()
+
+
+def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle) -> tuple:
+    """(i) int8 decode. (i0) the int8 products exact; (i1) a GPT2-XL
+    captioner (CLIP ViT-B/32, the mapper at width 1600, GPT2-XL: 48 layers,
+    25 heads, vocab 50257) seeded on the card in bf16, its LM quantized by
+    bundle.enable_int8_decode() and held against the CPU (q and s equal,
+    prefill logits of 2 rows within INT8_LOGIT_STEPS); (i2) the no-beam
+    sweep (8 images x 9 top-p, 75 steps) on the bf16 LM, then on the int8
+    one; (i3) int8 beam search, 64 images x beam 5 x 67 tokens through the
+    shared-prefix cache, after its step held bit for bit against the
+    replicated cache; (i4) int8 serving, 256 requests on 64 slots, greedy
+    and "fused_step"; (i5) the int8 ViT-B/32 at B=64; (i6) cli.infer (beam
+    and --no_beam), cli.serve and cli.evaluate with --int8_decode on (f)'s
+    checkpoint. The launch counters are set to 0 just before (i2)'s int8
+    sweep and read after (i6)."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+
+    import numpy as np
+    from PIL import Image
+
+    from clipcap_tpu_torch.cli import evaluate as eval_cli
+    from clipcap_tpu_torch.cli import infer as infer_cli
+    from clipcap_tpu_torch.cli import serve as serve_cli
+    from clipcap_tpu_torch.core.config import CaptionerConfig, GPT2Config, MapperConfig, ViTConfig
+    from clipcap_tpu_torch.data.preprocessing import normalize_on_device
+    from clipcap_tpu_torch.decode.beam import _expand_beams, _reorder_cache_tail
+    from clipcap_tpu_torch.decode.beam import beam_search_batched
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.decode.serving import Request
+    from clipcap_tpu_torch.eval.clip_scoring import ClipScoring
+    from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+    from clipcap_tpu_torch.models.gpt2 import Int8KVCache
+    from clipcap_tpu_torch.models.vit import quantize_params as quantize_vit
+
+    t_phase = time.perf_counter()
+    check_int8_products(torch)
+
+    # (i1) the XL captioner in bf16, then its int8 LM
+    t0 = time.perf_counter()
+    cap_cfg = CaptionerConfig(lm_type="gpt2", visual_encoder_type="CLIP",
+                              visual_encoder_variant="ViT-B/32",
+                              mapper=MapperConfig(dim_embedding=XL_D))
+    xl = CaptionerBundle.create(cap_cfg, GPT2Config.variant("gpt2-xl"), IdTokenizer(),
+                                ViTConfig.clip_variant("ViT-B/32"), seed=7, device="cuda",
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    gb = sum(p.numel() * p.element_size() for p in xl.model.parameters()) / 1e9
+    lm_gb = sum(p.numel() * p.element_size() for p in xl.model.lm.parameters()) / 1e9
+    c = xl.lm_cfg
+    say(f"(i1) GPT2-XL captioner seeded on the card in bf16: {gb:.2f} GB ({lm_gb:.2f} GB of it "
+        f"the LM; {c.n_layer} layers, width {c.n_embd}, {c.n_head} heads, vocab {c.vocab_size}) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    pixels = normalize_on_device(torch.rand(XL_BEAM_IMAGES, 3, 224, 224, generator=gen,
+                                            device="cuda"))
+    n_rows, n_steps = XL_IMAGES * len(TOP_P_SWEEP), 75  # NoBeamCaptionSampler's 75 steps
+
+    def sweep(steps: int = n_steps):
+        return NoBeamCaptionSampler(top_p_values=TOP_P_SWEEP, max_decode_length=steps,
+                                    device="cuda").sample_batch(xl, pixels[:XL_IMAGES])
+
+    def timed(fn, warm):
+        warm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def per_step(label: str, run, short: int, long: int) -> dict:
+        """Device ms and launches per decode step, from profiles of the same
+        call at two step counts (their difference over the extra steps, so
+        the encode and the prefill drop out), and the busy share of the
+        longer one."""
+        walls, profs = {}, {}
+        for n in (short, long):
+            t0 = time.perf_counter()
+            run(n)
+            torch.cuda.synchronize()
+            walls[n] = (time.perf_counter() - t0) * 1e3
+            profs[n] = profile_call(torch, f"{label}, {n} steps", lambda: run(n), walls[n])
+        return dict(device_ms_per_step=(profs[long]["busy_ms"] - profs[short]["busy_ms"])
+                    / (long - short),
+                    launches_per_step=(profs[long]["launches"] - profs[short]["launches"])
+                    / (long - short),
+                    busy_share=profs[long]["busy_ms"] / profs[long]["wall_ms"])
+
+    # (i2), the bf16 LM first: the float module beside the int8 one
+    t_sub = time.perf_counter()
+    _, float_s = timed(sweep, lambda: sweep(2))
+    float_prof = per_step("(i2) bf16 XL sweep", sweep, 8, 16)
+    say(f"(i2) bf16 XL sweep measured in {time.perf_counter() - t_sub:.1f} s")
+
+    t0 = time.perf_counter()
+    xl.enable_int8_decode()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    lm, q8 = xl.model.lm, xl.lm_decode
+    t0 = time.perf_counter()
+    blocks_b, head_b, wte_b = check_int8_quantization(torch, lm, q8)
+    with torch.no_grad():
+        prompt2 = xl.prefix_from_pixels(pixels[:2])
+        card_logits, _ = q8.prefill(prompt2, q8.init_cache(2, prompt2.shape[1]), full_logits=True)
+        cpu_q8 = copy.deepcopy(q8).cpu()
+        cpu_logits, _ = cpu_q8.prefill(prompt2.cpu(), cpu_q8.init_cache(2, prompt2.shape[1]),
+                                       full_logits=True)
+    del cpu_q8
+    scale = float(cpu_logits.abs().max())
+    err_i1 = max_abs(card_logits.cpu(), cpu_logits)
+    check(bool(torch.isfinite(card_logits).all()) and err_i1 <= int8_bound(scale),
+          f"(i1) int8 prefill logits card vs CPU: max abs err {err_i1:.4g} > "
+          f"{INT8_LOGIT_STEPS} x 2^-8 x max|logit| {scale:.3f} = {int8_bound(scale):.4g}")
+    say(f"(i1) enable_int8_decode: {quant_s:.1f} s; int8 blocks {blocks_b / 1e9:.3f} GB, int8 "
+        f"lm_head (50264 channels) {head_b / 1e6:.1f} MB, bf16 wte {wte_b / 1e6:.1f} MB; every "
+        f"q and s equal to the CPU's quantization; prefill logits of 2 rows card vs CPU max abs "
+        f"err {err_i1:.4g} (bound {int8_bound(scale):.4g}) ({time.perf_counter() - t0:.1f} s)")
+
+    # the int8 path, its launches counted
+    t_sub = time.perf_counter()
+    torch.cuda.synchronize()
+    counters(reset=True)
+    caps, int8_s = timed(sweep, lambda: sweep(2))
+    rise = counters()["fused_filter_sample"]
+    check(rise == 2 + n_steps, f"(i2) K2 launched {rise} times in the int8 warm-up and sweep, "
+          f"want one per decode step ({2 + n_steps})")
+    ids = [int(t) for c in caps for s_ in c for t in s_.split()]
+    check(len(caps) == XL_IMAGES and all(len(c) == len(TOP_P_SWEEP) for c in caps)
+          and all(0 <= t < 50257 for t in ids), "(i2) int8 sweep: wrong captions")
+    int8_prof = per_step("(i2) int8 XL sweep", sweep, 8, 16)
+    say(f"(i2) int8 XL sweep measured in {time.perf_counter() - t_sub:.1f} s")
+    sweep_rates = {}
+    for name, secs, prof in (("bf16", float_s, float_prof), ("int8", int8_s, int8_prof)):
+        sweep_rates[name] = dict(captions_per_s=n_rows / secs, wall_ms=secs * 1e3, **prof)
+        r = sweep_rates[name]
+        say(f"(i2) {name} XL sweep, {XL_IMAGES} images x {len(TOP_P_SWEEP)} top-p ({n_rows} rows, "
+            f"{n_steps} steps) on {card}: {r['captions_per_s']:.2f} captions/s; device "
+            f"{r['device_ms_per_step']:.3f} ms and {r['launches_per_step']:.1f} launches per step; "
+            f"busy share {r['busy_share']:.3f} (per step: profiles at 8 and 16 steps, "
+            f"differenced)")
+
+    # (i3) the shared-prefix beam step bit for bit, then the beam call
+    t_sub = time.perf_counter()
+    p_len, beam, n_chk = prompt2.shape[1], BEAM, 4
+    with torch.no_grad():
+        prompt = xl.prefix_from_pixels(pixels)
+        _, cache = q8.prefill(prompt[:n_chk], q8.init_cache(n_chk, p_len + 5))
+        rep = _expand_beams(Int8KVCache(*(a.clone() for a in cache[:4]), index=p_len), beam)
+        bc = q8.beam_prefix_cache(cache, beam, p_len)
+        g = torch.Generator().manual_seed(29)
+        for s_ in range(5):
+            tok = torch.randint(0, 50257, (n_chk * beam,), generator=g).to("cuda")
+            e = q8.embed_tokens(tok)[:, None]
+            want, rep = q8.decode_step(e, rep)
+            got, bc = q8.decode_step_beam(e, bc)
+            check(torch.equal(got, want), f"(i3) shared-prefix beam step {s_}: logits differ "
+                  f"from decode_step on the replicated int8 cache (max abs "
+                  f"{max_abs(got, want):.3e})")
+            src = torch.cat([i * beam + torch.randperm(beam, generator=g)
+                             for i in range(n_chk)]).to("cuda")
+            rep = _reorder_cache_tail(rep, src, p_len)
+            bc = q8.reorder_beam_tail(bc, src)
+    del rep, bc, cache
+
+    def beam_call(steps: int = BEAM_NEW):
+        return beam_search_batched(q8, prompt, beam_size=beam, max_new_tokens=steps,
+                                   stop_token_id=STOP, device="cuda")
+
+    out, beam_s = timed(beam_call, lambda: beam_call(2))
+    check(bool(torch.isfinite(out["scores"]).all()) and out["tokens"].shape == (
+        XL_BEAM_IMAGES, beam, BEAM_NEW), "(i3) int8 beam: non-finite scores or wrong shape")
+    beam_prof = profile_call(torch, "(i3) int8 XL beam", beam_call, beam_s * 1e3)
+    beam_rates = dict(captions_per_s=XL_BEAM_IMAGES / beam_s, wall_ms=beam_s * 1e3,
+                      device_ms_per_step=beam_prof["busy_ms"] / BEAM_NEW,
+                      launches_per_step=beam_prof["launches"] / BEAM_NEW,
+                      busy_share=beam_prof["busy_ms"] / beam_prof["wall_ms"])
+    say(f"(i3) int8 XL beam {XL_BEAM_IMAGES} images x beam {beam} x {BEAM_NEW} tokens "
+        f"({XL_BEAM_IMAGES * beam} rows, shared-prefix cache) on {card}: "
+        f"{beam_rates['captions_per_s']:.2f} captions/s; device "
+        f"{beam_rates['device_ms_per_step']:.3f} ms and {beam_rates['launches_per_step']:.1f} "
+        f"launches per step; busy share {beam_rates['busy_share']:.3f}; the shared-prefix step "
+        f"equal bit for bit to the replicated cache's over {n_chk} images x 5 steps "
+        f"({time.perf_counter() - t_sub:.1f} s)")
+    t_sub = time.perf_counter()
+
+    # (i4) int8 serving: 256 requests (caps 8-24) on 64 slots, greedy and "fused_step"
+    pool = xl.project_prefix(torch.randn(SERVE_REQUESTS, 512, generator=gen, device="cuda"))
+    serve_caps = np.random.default_rng(31).integers(8, 25, SERVE_REQUESTS).tolist()
+    reqs = [Request(i, i, max_length=c) for i, c in enumerate(serve_caps)]
+    base = GenerationSettings(max_new_tokens=SERVE_NEW, eos_token_id=EOS)
+    greedy = dataclasses.replace(base, greedy=True)
+    settings = {"greedy": greedy,
+                "fused_step": dataclasses.replace(base, top_p=0.8, repetition_penalty=1.2,
+                                                  min_length=5, filter_method="fused_step")}
+    serve_rates, served = {}, {}
+    for name, st in settings.items():
+        eng = xl.make_serving_engine(st, slots=SERVE_SLOTS, steps_per_sync=SERVE_SYNC,
+                                     pipeline_depth=2).warmup()
+        check(eng.dtype == torch.bfloat16, "(i4) the int8 engine's activations are not bf16")
+        k3 = counters()["fused_step_sample"]
+        t0 = time.perf_counter()
+        res = eng.serve(reqs, seed=7, prefix_pool=pool)
+        wall = time.perf_counter() - t0
+        k3 = counters()["fused_step_sample"] - k3
+        stats = eng.last_stats
+        want_k3 = stats["steps"] if name == "fused_step" else 0
+        check(k3 == want_k3, f"(i4) {name}: K3 launched {k3} times over {stats['steps']} "
+              f"dispatched steps, want {want_k3}")
+        check(sorted(res) == list(range(SERVE_REQUESTS)) and all(
+            0 < len(r["tokens"]) <= serve_caps[i] for i, r in res.items()),
+              f"(i4) {name}: not every request answered within its cap")
+        lat = np.asarray([r["latency_s"] for r in res.values()])
+        served[name] = res
+        serve_rates[name] = dict(captions_per_s=SERVE_REQUESTS / wall,
+                                 p50_s=float(np.percentile(lat, 50)),
+                                 p99_s=float(np.percentile(lat, 99)),
+                                 occupancy=stats["occupancy"], steps=stats["steps"])
+        say(f"(i4) int8 XL serve {SERVE_REQUESTS} requests ({name}; caps 8-24), {SERVE_SLOTS} "
+            f"slots on {card}: {serve_rates[name]['captions_per_s']:.2f} captions/s; latency_s "
+            f"p50 {serve_rates[name]['p50_s']:.4f}, p99 {serve_rates[name]['p99_s']:.4f}; "
+            f"occupancy {stats['occupancy']}; {stats['steps']} steps; K3 +{k3}")
+    flips = 0
+    for i in range(INT8_SOLO):
+        ref = generate(q8, pool[i:i + 1], dataclasses.replace(greedy, max_length=serve_caps[i]),
+                       device="cuda")
+        want = ref["tokens"][0, : int(ref["lengths"][0])].tolist()
+        got = served["greedy"][i]["tokens"]
+        if got != want:
+            s_ = first_difference(got, want)
+            _, gaps = greedy_with_gaps(torch, q8, pool[i:i + 1], SERVE_NEW)
+            with torch.no_grad():
+                sc = float(q8.prefill(pool[i:i + 1], q8.init_cache(1, p_len))[0].abs().max())
+            gap = float(gaps[0, s_])
+            check(gap < int8_bound(sc), f"(i4) request {i} differs from its solo int8 run at "
+                  f"step {s_}, where the solo gap is {gap:.3e} (>= {int8_bound(sc):.3e})")
+            flips += 1
+    say(f"(i4) the first {INT8_SOLO} greedy requests against their solo int8 generate: "
+        f"near-tie flips {flips} ({time.perf_counter() - t_sub:.1f} s)")
+    t_sub = time.perf_counter()
+    del sweep, beam_call, eng, xl, q8, lm, pool, out, prompt, prompt2, card_logits
+    torch.cuda.empty_cache()
+
+    # (i5) the int8 ViT-B/32 encoder at B=64 (f32 activations; attention on K1)
+    visual = main_bundle.model.visual
+    qvis = quantize_vit(visual)
+    px = pixels.float()
+    with torch.no_grad():
+        want = visual(px, output="pooled")
+        k1 = counters()["fused_attention"]
+        got = qvis(px, output="pooled")
+        k1 = counters()["fused_attention"] - k1
+        vit_ms = time_ms(torch, lambda: qvis(px, output="pooled"), iters=5)
+        f32_ms = time_ms(torch, lambda: visual(px, output="pooled"), iters=5)
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1)
+    check(k1 == visual.cfg.layers, f"(i5) K1 launched {k1} times in one int8 encode, want "
+          f"{visual.cfg.layers}")
+    check(float(cos.min()) > 0.995, f"(i5) int8 ViT cosine to the float encode "
+          f"{float(cos.min()):.5f} <= 0.995")
+    vit_rates = dict(images_per_s=XL_BEAM_IMAGES / (vit_ms / 1e3),
+                     f32_images_per_s=XL_BEAM_IMAGES / (f32_ms / 1e3),
+                     min_cosine=float(cos.min()))
+    say(f"(i5) int8 ViT-B/32 encode, B={XL_BEAM_IMAGES}, on {card}: "
+        f"{vit_rates['images_per_s']:.1f} images/s (the f32 encoder in this call: "
+        f"{vit_rates['f32_images_per_s']:.1f}); K1 +{k1}; cosine to the float encode "
+        f">= {float(cos.min()):.5f}")
+    del qvis, px, pixels
+
+    # (i6) the CLIs with --int8_decode on (f)'s checkpoint
+    t_sub = time.perf_counter()
+    common = ["--checkpoint_path", str(work / "ckpt"), "--tokenizer_vocab_dir",
+              str(work / "vocab"), "--device", "cuda"]
+    clip = ["--clip_model", "ViT-B/32", "--clip_checkpoint", str(work / "clip.pt"),
+            "--clip_merges", str(work / "clip_merges.txt")]
+    cli_s = {}
+    for name, extra, n_img in (("beam", [], INFER_IMAGES),
+                               ("no_beam", ["--no_beam", "--total_samples", "2"], 2)):
+        before = counters()
+        t0 = time.perf_counter()
+        with open(work / f"int8_{name}_stdout.txt", "w") as log, contextlib.redirect_stdout(log):
+            data = infer_cli.main(common + clip + ["--folder_path", str(work / "images"),
+                                                   "--out_filename_prefix",
+                                                   str(work / f"int8_{name}"),
+                                                   "--int8_decode"] + extra)
+        cli_s[f"infer_{name}"] = time.perf_counter() - t0
+        after = counters()
+        check(len(data) == n_img and all(len(e["generated_captions"]) == 1 and all(
+            math.isfinite(v) for v in e["scores"].values()) for e in data.values()),
+              f"(i6) cli.infer {name} --int8_decode: not one caption and finite scores per image")
+        want_k2 = 0 if name == "beam" else 75 * n_img
+        check(after["fused_filter_sample"] - before["fused_filter_sample"] == want_k2
+              and after["fused_attention"] > before["fused_attention"],
+              f"(i6) cli.infer {name} --int8_decode: K2 rose by "
+              f"{after['fused_filter_sample'] - before['fused_filter_sample']}, want {want_k2}")
+    np.save(work / "int8_feats.npy",
+            np.random.default_rng(37).normal(size=(64, 512)).astype(np.float32))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        n = serve_cli.main(common + ["--prefixes_npy", str(work / "int8_feats.npy"),
+                                     "--out_jsonl", str(work / "int8_serve.jsonl"),
+                                     "--slots", "16", "--max_new_tokens", "24",
+                                     "--int8_decode"])
+    cli_s["serve"] = time.perf_counter() - t0
+    lines = [json.loads(x) for x in (work / "int8_serve.jsonl").read_text().splitlines()]
+    check(n == 64 and len(lines) == 64 and all(0 < x["tokens"] <= 24 for x in lines),
+          "(i6) cli.serve --int8_decode: wrong JSONL")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        eval_cli.main(common + clip + ["--valid_json_path", str(work / "coco" / "captions.json"),
+                                       "--image_folder_path", str(work / "coco" / "images"),
+                                       "--max_samples", str(EVAL_CHUNK), "--eval_batch_size",
+                                       str(EVAL_CHUNK), "--int8_decode"])
+    cli_s["evaluate"] = time.perf_counter() - t0
+    text = printed.getvalue()
+    scores = json.loads(text[text.index("{"):])
+    check(math.isfinite(scores["validation_loss"]) and math.isfinite(scores["clip_score"])
+          and sorted(scores["sampler_scores"]) == ["clip_guided", "nobeam"],
+          "(i6) cli.evaluate --int8_decode: malformed scores")
+    # the best beams of 2 images against the int8 LM on the CPU
+    f32 = handles["bundle"]
+    ib = CaptionerBundle(f32.model, f32.cap_cfg, f32.lm_cfg, f32.tokenizer, vit_cfg=f32.vit_cfg,
+                         device="cuda").enable_int8_decode()
+    scoring = ClipScoring(handles["visual"], handles["text"], None)
+    img_px = []
+    for f in sorted((work / "images").glob("*.jpg"))[:XL_BEAM_IMAGES]:
+        with Image.open(f) as image:
+            img_px.append(scoring.preprocess_image(image))
+    with torch.no_grad():
+        prompt = ib.prefix_from_pixels(torch.from_numpy(np.stack(img_px)))
+        sc = float(ib.lm_decode.prefill(prompt[:2], ib.lm_decode.init_cache(2, prompt.shape[1]))[0]
+                   .abs().max())
+    traced, card_sel, _ = traced_beam(torch, ib.lm_decode, prompt, "cuda")
+    t_sub = time.perf_counter()
+    flips6, _ = check_beam_vs_cpu(torch, ib, prompt, traced, card_sel, gap_bound=int8_bound(sc),
+                                  label="(i6)")
+    launches = counters()
+    cli_s["beam_check"] = time.perf_counter() - t_sub
+    say(f"(i6) the CLIs with --int8_decode on (f)'s checkpoint: cli.infer beam {INFER_IMAGES} "
+        f"images {cli_s['infer_beam']:.1f} s, --no_beam 2 images {cli_s['infer_no_beam']:.1f} s, "
+        f"cli.serve 64 requests {cli_s['serve']:.1f} s, cli.evaluate {EVAL_CHUNK} images "
+        f"{cli_s['evaluate']:.1f} s; well-formed outputs; validation loss "
+        f"{scores['validation_loss']:.4f}; the beam check {cli_s['beam_check']:.1f} s")
+    say(f"int8 phase (i): {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(sweep=sweep_rates, beam=beam_rates, serving=serve_rates,
+                          vit=vit_rates, prefill_err=err_i1, cli_s=cli_s,
+                          serve_flips=flips, beam_flips=flips6,
+                          int8_bytes=dict(blocks=blocks_b, lm_head=head_b, wte=wte_b))
+
+
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     """Where the time of one call goes: the device time of each kernel
     (torch.profiler, CUPTI), summed, as a share of the wall time of the same
@@ -1986,10 +2444,15 @@ def profile_call(torch, label: str, run, wall_ms: float) -> dict:
         run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                     key=lambda e: -e[1])
+    # summed by name from the raw kineto events: key_averages() takes ~0.2 ms
+    # an event (minutes for a 500k-launch call), these a few us
+    t_agg, by_name = time.perf_counter(), {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    kernels = sorted(((name, ms, n) for name, (ms, n) in by_name.items()), key=lambda e: -e[1])
+    t_agg = time.perf_counter() - t_agg
     check(bool(kernels), f"profile {label}: the profiler recorded no CUDA kernel")
     busy_ms = sum(ms for _, ms, _ in kernels)
     launches = sum(n for _, _, n in kernels)
@@ -1997,7 +2460,7 @@ def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     say(f"profile {label}: {launches} kernel launches, device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / prof_wall_ms:.1f}% of this call's {prof_wall_ms:.1f} ms wall under "
         f"the profiler ({100 * busy_ms / wall_ms:.1f}% of the {wall_ms:.1f} ms wall of the "
-        f"unprofiled call {label}); top: {top}")
+        f"unprofiled call {label}); top: {top}; aggregated in {t_agg:.1f} s")
     return dict(launches=launches, busy_ms=busy_ms, wall_ms=prof_wall_ms)
 
 
@@ -2060,6 +2523,7 @@ def main() -> int:
         infer_launches, infer_rates, handles = infer_path(torch, counters, bundle, card, work)
         eval_launches, eval_rates = evaluate_path(torch, counters, card, work, handles,
                                                   rates.pop("c_profile"))
+        int8_launches, int8_rates = int8_path(torch, counters, card, work, handles, bundle)
         del handles
         train_launches, train_rates = train_path(torch, counters, card, work)
     finally:
@@ -2068,14 +2532,17 @@ def main() -> int:
     paths = {"fused_attention": {"main": main_launches["fused_attention"],
                                  "infer": infer_launches["fused_attention"],
                                  "evaluate": eval_launches["fused_attention"],
+                                 "int8": int8_launches["fused_attention"],
                                  "train": train_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
                                      "infer": infer_launches["fused_filter_sample"],
                                      "evaluate": eval_launches["fused_filter_sample"],
+                                     "int8": int8_launches["fused_filter_sample"],
                                      "train": train_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
-                                   "serving": serve_launches["fused_step_sample"]},
+                                   "serving": serve_launches["fused_step_sample"],
+                                   "int8": int8_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
     for name, by_path in paths.items():
         if name != "fused_filter":
@@ -2100,6 +2567,7 @@ def main() -> int:
     say(f"serving on {card}: " + json.dumps(serve_rates))
     say(f"infer on {card}: " + json.dumps(infer_rates))
     say(f"evaluate on {card}: " + json.dumps(eval_rates))
+    say(f"int8 on {card}: " + json.dumps(int8_rates))
     say(f"train on {card}: " + json.dumps(train_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -94,7 +94,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_samples", type=int, default=10)
     p.add_argument("--manual_seed", type=int, default=42)
     p.add_argument("--int8_decode", action="store_true",
-                   help="int8 weight-streaming decode (not ported)")
+                   help="int8 weight-streaming decode for the samplers (gpt2; see "
+                        "models/bundle.enable_int8_decode)")
     p.add_argument("--eval_batch_size", type=int, default=8,
                    help="images per validator chunk; samplers with a batched path run once "
                         "per chunk (1 = reference-exact image-at-a-time)")
@@ -104,14 +105,14 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
-    if args.int8_decode:  # refused, never ignored
-        raise NotImplementedError("--int8_decode is not ported yet (ROADMAP.md item 8)")
 
     from ..eval.clip_scoring import ClipScoring
     from .loading import load_captioner_bundle, load_clip_ranker
 
     bundle = load_captioner_bundle(args.checkpoint_path, args.tokenizer_vocab_dir,
                                    prefix_only=args.prefix_only, device=args.device)
+    if args.int8_decode:
+        bundle.enable_int8_decode()
     ranker = load_clip_ranker(args.clip_model, args.clip_checkpoint, args.clip_merges,
                               device=args.device)
     scoring = ClipScoring(ranker.visual, ranker.text, ranker.tokenizer)

@@ -203,7 +203,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--speculative_draft_checkpoint", default=None,
                    help="draft captioner for speculative decoding (not ported)")
     p.add_argument("--int8_decode", action="store_true",
-                   help="int8 weight-streaming decode (not ported)")
+                   help="int8 weight-streaming decode (gpt2): int8 weights and KV cache; "
+                        "tokens can differ from the float path at quantization boundaries")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -215,14 +216,15 @@ def main(argv=None):
         raise _not_ported("--tensor_parallel > 1", 12)
     if args.speculative_draft_checkpoint:
         raise _not_ported("--speculative_draft_checkpoint", 10)
-    if args.int8_decode:
-        raise _not_ported("--int8_decode", 8)
 
     from ..eval.clip_scoring import ClipScoring
     from .loading import load_captioner_bundle, load_clip_ranker
 
     bundle = load_captioner_bundle(args.checkpoint_path, args.tokenizer_vocab_dir,
                                    device=args.device)
+    if args.int8_decode:
+        bundle.enable_int8_decode()
+        print("int8 weight-streaming decode enabled")
     ranker = load_clip_ranker(args.clip_model, args.clip_checkpoint, args.clip_merges,
                               device=args.device)
     scoring = ClipScoring(ranker.visual, ranker.text, ranker.tokenizer)

@@ -111,7 +111,8 @@ def main(argv=None):
                    help="declare the per-request new-token cap bound; the KV ring is "
                         "sized to it instead of max_new_tokens. Length caps bind through "
                         "the engine's completion logic, so --eos_token_id must be set")
-    p.add_argument("--int8_decode", action="store_true", help="not ported")
+    p.add_argument("--int8_decode", action="store_true",
+                   help="int8 weight-streaming decode (gpt2): int8 weights and KV ring")
     p.add_argument("--max_new_tokens", type=int, default=67)
     p.add_argument("--top_p", type=float, default=0.0)
     p.add_argument("--top_k", type=int, default=0)
@@ -121,8 +122,6 @@ def main(argv=None):
     p.add_argument("--eos_token_id", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.int8_decode:
-        raise NotImplementedError("--int8_decode is not ported yet (ROADMAP.md item 8)")
     if args.target_p50_s is not None:
         # the JAX CLI reads a curve measured on a TPU; no TPU figure serves here
         raise NotImplementedError("--target_p50_s needs a serving latency curve measured on "
@@ -132,6 +131,8 @@ def main(argv=None):
 
     bundle = load_captioner_bundle(args.checkpoint_path, args.tokenizer_vocab_dir,
                                    device=args.device)
+    if args.int8_decode:
+        bundle.enable_int8_decode()
     n = serve_shard(
         bundle, np.load(args.prefixes_npy), args.out_jsonl,
         slots=args.slots, refill_size=args.refill_size, steps_per_sync=args.steps_per_sync,

@@ -15,6 +15,15 @@ gives back as `|V2` void records. Every 2-byte void array here is such a
 bf16 leaf: `to_torch` views its bits as int16, then as torch.bfloat16, and
 `to_numpy` writes a bf16 tensor back as `|V2` records, bit for bit.
 Transposes, indexing and stacks move the records unchanged.
+
+int8 trees: a quantized linear leaf of the JAX package, {"q": int8
+[in, out], "s": f32 [out]} (ops/quant.quantize_weight), becomes the
+port's Int8Linear buffers `q` [out, in] and `s`, and back. GPT-2's int8
+`lm_head` ([D, V]) is padded to the port's multiple-of-8 channels with
+q = 0 and s = 1e-12, what the port's own quantization gives zero rows,
+and sliced back to the vocabulary on the way out. So the converters read
+and write what `gpt2.quantize_params` and `vit.quantize_params` make in
+either package.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+
+from .ops.quant import CHANNEL_ALIGN, is_quantized
 
 StateDict = Dict[str, np.ndarray]
 BF16_RECORD = np.dtype("V2")  # what np.load gives for a JAX bf16 leaf
@@ -64,10 +75,14 @@ def _ln(prefix: str, p: dict, layer=None) -> StateDict:
 
 
 def _lin(prefix: str, w, b=None, layer=None) -> StateDict:
-    w = np.asarray(w)
-    if layer is not None:
-        w = w[layer]
-    out = {f"{prefix}.weight": w.T}
+    if is_quantized(w):
+        q, sc = np.asarray(w["q"]), np.asarray(w["s"])
+        if layer is not None:
+            q, sc = q[layer], sc[layer]
+        out = {f"{prefix}.q": q.T, f"{prefix}.s": sc}
+    else:
+        w = np.asarray(w)
+        out = {f"{prefix}.weight": (w[layer] if layer is not None else w).T}
     if b is not None:
         b = np.asarray(b)
         out[f"{prefix}.bias"] = b[layer] if layer is not None else b
@@ -129,6 +144,11 @@ def gpt2_state_dict(params: dict) -> StateDict:
         sd.update(_lin(f"{p}.c_proj", attn["c_proj"]["w"], attn["c_proj"]["b"], i))
         sd.update(_lin(f"{p}.c_fc", mlp["c_fc"]["w"], mlp["c_fc"]["b"], i))
         sd.update(_lin(f"{p}.mlp_proj", mlp["c_proj"]["w"], mlp["c_proj"]["b"], i))
+    if "lm_head" in params:  # the int8 tree (gpt2.quantize_params)
+        head = _lin("lm_head", params["lm_head"])
+        extra = -head["lm_head.q"].shape[0] % CHANNEL_ALIGN
+        sd["lm_head.q"] = np.pad(head["lm_head.q"], ((0, extra), (0, 0)))
+        sd["lm_head.s"] = np.pad(head["lm_head.s"], (0, extra), constant_values=np.float32(1e-12))
     return sd
 
 
@@ -168,9 +188,21 @@ def _unln(sd: StateDict, fmt: str, n: int) -> dict:
             "b": np.stack([sd[fmt.format(i) + ".bias"] for i in range(n)])}
 
 
-def _unw(sd: StateDict, fmt: str, n: int) -> np.ndarray:
-    """Stacked [L, in, out] weights of the nn.Linear named fmt.format(i)."""
-    return np.stack([sd[fmt.format(i) + ".weight"].T for i in range(n)])
+def _flat_w(sd: StateDict, name: str):
+    """The [in, out] weight of the nn.Linear `name`, or the {"q", "s"} leaf
+    of the Int8Linear so named."""
+    if name + ".q" in sd:
+        return {"q": sd[name + ".q"].T, "s": sd[name + ".s"]}
+    return sd[name + ".weight"].T
+
+
+def _unw(sd: StateDict, fmt: str, n: int):
+    """Stacked [L, in, out] weights (or quantized leaves) of the linears
+    named fmt.format(i)."""
+    ws = [_flat_w(sd, fmt.format(i)) for i in range(n)]
+    if isinstance(ws[0], dict):
+        return {key: np.stack([w[key] for w in ws]) for key in ("q", "s")}
+    return np.stack(ws)
 
 
 def _unb(sd: StateDict, fmt: str, n: int) -> np.ndarray:
@@ -184,7 +216,7 @@ def _flat_ln(sd: StateDict, name: str) -> dict:
 def vit_params(sd: StateDict, layers: int) -> dict:
     """Inverse of vit_state_dict."""
     blk = "blocks.{}."
-    params = {"patch": {"w": sd["patch.weight"].T}, "cls": sd["cls"], "pos": sd["pos"],
+    params = {"patch": {"w": _flat_w(sd, "patch")}, "cls": sd["cls"], "pos": sd["pos"],
               "ln_post": _flat_ln(sd, "ln_post"),
               "blocks": {"ln1": _unln(sd, blk + "ln1", layers),
                          "ln2": _unln(sd, blk + "ln2", layers),
@@ -232,11 +264,15 @@ def gpt2_params(sd: StateDict, layers: int) -> dict:
     def lin(name):
         return {"w": _unw(sd, blk + name, layers), "b": _unb(sd, blk + name, layers)}
 
-    return {"wte": sd["wte"], "wpe": sd["wpe"], "ln_f": _flat_ln(sd, "ln_f"),
-            "blocks": {"ln1": _unln(sd, blk + "ln1", layers),
-                       "ln2": _unln(sd, blk + "ln2", layers),
-                       "attn": {"c_attn": lin("c_attn"), "c_proj": lin("c_proj")},
-                       "mlp": {"c_fc": lin("c_fc"), "c_proj": lin("mlp_proj")}}}
+    params = {"wte": sd["wte"], "wpe": sd["wpe"], "ln_f": _flat_ln(sd, "ln_f"),
+              "blocks": {"ln1": _unln(sd, blk + "ln1", layers),
+                         "ln2": _unln(sd, blk + "ln2", layers),
+                         "attn": {"c_attn": lin("c_attn"), "c_proj": lin("c_proj")},
+                         "mlp": {"c_fc": lin("c_fc"), "c_proj": lin("mlp_proj")}}}
+    if "lm_head.q" in sd:  # the int8 module: its padded channels dropped
+        vocab = sd["wte"].shape[0]
+        params["lm_head"] = {"q": sd["lm_head.q"][:vocab].T, "s": sd["lm_head.s"][:vocab]}
+    return params
 
 
 def captioner_params(model: nn.Module) -> dict:

@@ -7,14 +7,16 @@ The decode semantics of the reference's generate_beam
 one 0-logprob continuation at column 0), '.'-token stopping, and the final
 order by normalised score. Beams live in the batch axis of the KV cache,
 image i's beams in rows [i*beam, (i+1)*beam); each step reorders the
-cache's generated tail along that axis with a gather.
+cache's generated tail along that axis with a gather. An LM with the
+shared-prefix beam protocol (`beam_prefix_cache`, the int8 GPT-2) keeps
+the prefill K/V once per image instead and reorders only the tails, with
+bit-equal logits (JAX beam.py:176-190).
 
 Selection is plain torch ops, as it is plain XLA in the JAX package: no
 kernel runs here. The f32 operations keep the JAX order (log_softmax of
 logits / temperature, then scores + logp, then / seq_lengths). The host
-reads nothing back inside the loop. The cross-attention cache fields and
-the int8 shared-prefix cache of the JAX module come with the T5/BLIP and
-int8 slices.
+reads nothing back inside the loop. The cross-attention cache fields of
+the JAX module come with the T5/BLIP slices.
 """
 
 from __future__ import annotations
@@ -25,24 +27,33 @@ import numpy as np
 import torch
 
 
+def _beam_slabs(cache) -> dict:
+    """The self-attention slabs that follow the beams, by field name: k and v,
+    and the int8 cache's per-position scales ks and vs."""
+    return {name: getattr(cache, name) for name in ("k", "v", "ks", "vs") if hasattr(cache, name)}
+
+
 def _reorder_cache_tail(cache, global_source: torch.Tensor, p_len: int):
     """Beam-reorder the cache's batch axis over the generated tail only,
     positions [p_len, index): the prefix rows of an image's beams are equal
     (expanded from one prefilled row) and the gather stays within an image,
     so moving them would change no bit; positions from `index` on are not
-    written yet. The gather reads into a new tensor before the write-back,
-    since it reads the slab it writes."""
-    idx = cache.index
-    for slab in (cache.k, cache.v):
-        slab[:, :, p_len:idx] = slab[:, :, p_len:idx].index_select(1, global_source)
+    written yet. Time is axis 2 of the float cache and axis 3 of the int8
+    one. The gather reads into a new tensor before the write-back, since it
+    reads the slab it writes."""
+    index = [slice(None)] * 4
+    index[3 if hasattr(cache, "ks") else 2] = slice(p_len, cache.index)
+    index = tuple(index)
+    for slab in _beam_slabs(cache).values():
+        slab[index] = slab[index].index_select(1, global_source)
     return cache
 
 
 def _expand_beams(cache, beam_size: int):
     """Replicate each row of a prefilled cache beam_size times on the batch
     axis (row i*beam + b is image i)."""
-    return cache._replace(k=cache.k.repeat_interleave(beam_size, dim=1),
-                          v=cache.v.repeat_interleave(beam_size, dim=1))
+    return cache._replace(**{name: slab.repeat_interleave(beam_size, dim=1)
+                             for name, slab in _beam_slabs(cache).items()})
 
 
 def _topk_iter(x: torch.Tensor, k: int):
@@ -99,7 +110,13 @@ def beam_search_batched(
     seq_lengths = torch.ones((n_img, beam_size), dtype=torch.float32, device=dev)
     has_stopped = (first_tokens == stop_token_id if stop_token_id is not None
                    else torch.zeros((n_img, beam_size), dtype=torch.bool, device=dev))
-    cache = _expand_beams(cache, beam_size)
+    shared_prefix = hasattr(lm, "beam_prefix_cache")
+    if shared_prefix:  # prefill K/V once per image, a tail per beam row
+        cache = lm.beam_prefix_cache(cache, beam_size, p_len)
+        decode_fn = lm.decode_step_beam
+    else:
+        cache = _expand_beams(cache, beam_size)
+        decode_fn = lm.decode_step
 
     def step_input(tok):  # tok [N*beam]
         return lm.embed_tokens(tok)[:, None, :].to(prompt_embeds.dtype)
@@ -109,7 +126,7 @@ def beam_search_batched(
     frozen = torch.full((vocab,), float("-inf"), device=dev)
     frozen[0] = 0.0
     if n > 1:
-        logits, cache = lm.decode_step(step_input(first_tokens.reshape(-1)), cache)
+        logits, cache = decode_fn(step_input(first_tokens.reshape(-1)), cache)
     for step in range(1, n):
         logp = torch.log_softmax(logits.float() / temp, dim=-1).reshape(n_img, beam_size, vocab)
         logp = torch.where(has_stopped[:, :, None], frozen, logp)
@@ -127,11 +144,15 @@ def beam_search_batched(
         has_stopped = torch.gather(has_stopped, 1, source)
         scores = top_avg * seq_lengths
 
-        cache = _reorder_cache_tail(cache, (img_base + source).reshape(-1), p_len)
+        global_source = (img_base + source).reshape(-1)  # within each image
+        if shared_prefix:
+            cache = lm.reorder_beam_tail(cache, global_source)
+        else:
+            cache = _reorder_cache_tail(cache, global_source, p_len)
         if stop_token_id is not None:
             has_stopped = has_stopped | (next_tok == stop_token_id)
         if step + 1 < n:  # the last step's logits would go unused
-            logits, cache = lm.decode_step(step_input(next_tok.reshape(-1)), cache)
+            logits, cache = decode_fn(step_input(next_tok.reshape(-1)), cache)
 
     return {"tokens": tokens.to(torch.int32),
             "seq_lengths": seq_lengths.to(torch.int32),

@@ -30,13 +30,17 @@ never attends it. The chosen candidate's level-(depth-1) parent row
 (`best_row // k`) holds exactly the committed positions, so the next
 chunk's cache is a device gather of those rows with the index set to
 p_len + committed_len - 1 (step_by_step rewinds it below the tree's
-writes; the port's decode step attends positions [0, index] only).
+writes; the port's decode steps, float and int8, attend positions
+[0, index] only).
 
 Batching across images: every live image commits the same number of
 tokens per chunk (an image whose chosen candidate stops is finished), so
 the N trees stack into one row-blocked batch, and finished images ride
 along as ignored rows. Per-image results equal N single calls exactly on
 the CPU in f32.
+
+The tree decodes on `bundle.lm_decode`, so `bundle.enable_int8_decode()`
+runs it on the int8 LM and its int8 cache, as in JAX.
 
 What stays behind: JAX caches its jitted level closures on the bundle
 (`_clip_guided_level_cache`); eager PyTorch has no compile cache to keep.
@@ -51,7 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.sampling import repetition_penalty
-from .beam import _expand_beams, _topk_iter
+from .beam import _beam_slabs, _expand_beams, _topk_iter
 
 
 def _replicate_rows(cache, k: int):
@@ -65,10 +69,11 @@ def _replicate_rows(cache, k: int):
 
 
 def _gather_rows(cache, idx: torch.Tensor, new_index: int):
-    """Select cache rows on the batch axis and set the write index
-    (step_by_step rewinds it below junk tree positions)."""
-    return cache._replace(k=cache.k.index_select(1, idx), v=cache.v.index_select(1, idx),
-                          index=new_index)
+    """Select cache rows on the batch axis (k and v, and the int8 cache's
+    scales ks and vs) and set the write index (step_by_step rewinds it
+    below junk tree positions)."""
+    return cache._replace(index=new_index, **{name: slab.index_select(1, idx)
+                                              for name, slab in _beam_slabs(cache).items()})
 
 
 def _expand_tree(lm, cache, tok_last: torch.Tensor, hist: torch.Tensor,

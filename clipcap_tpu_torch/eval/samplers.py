@@ -90,7 +90,8 @@ class NoBeamCaptionSampler(CaptionSamplerBase):
                 stop_on_special=tuple(tokenizer.all_special_ids),
                 vocab_prefilter=self.vocab_prefilter,
             )
-            return generate(bundle.lm, prompt, settings, seed=self.seed, device=self.device)
+            return generate(bundle.lm_decode, prompt, settings, seed=self.seed,
+                            device=self.device)
 
     def generate_captions(self, bundle, prefix, image_embedding=None, image=None) -> List[str]:
         out = self._generate(bundle, prefix, prefix.shape[0])

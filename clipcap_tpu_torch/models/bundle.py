@@ -1,6 +1,7 @@
 """CaptionerBundle: the runtime handle tying model, configs and tokenizer
 (port of clipcap_tpu/models/bundle.py: encode_image, project_prefix,
-prefix_from_pixels, embed_text, forward, make_serving_engine).
+prefix_from_pixels, embed_text, forward, enable_int8_decode, lm_decode,
+make_serving_engine).
 
 The JAX bundle's params dict becomes a `Captioner` module. The bundle
 runs on `device`, the card unless asked for the CPU; the model must lie
@@ -8,7 +9,13 @@ there. Each submodule computes in its own dtype: pixels and features are
 cast to the encoder's and the mapper's (a bf16 checkpoint computes in
 bf16 from the pixels on; JAX promotes f32 pixels against bf16 weights to
 f32 instead, so there the encoder and the mapper of a bf16 checkpoint run
-in f32). Multi-chip and int8 hooks come with later slices.
+in f32). Multi-chip hooks come with a later slice.
+
+`enable_int8_decode()` quantizes the LM once and switches only the decode
+surface, `lm_decode`, which the samplers, beam search, serving and the
+CLIP-guided tree drive; `forward`, the loss and `embed_text` keep the float
+LM, as in JAX. The int8 module holds its own weights, so there is no
+separate `lm_decode_params`.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ class CaptionerBundle:
     tokenizer: Any
     vit_cfg: Optional[ViTConfig] = None  # config of model.visual if present
     device: str = "cuda"
+    _int8_lm: Any = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         where = {p.device.type for p in self.model.parameters()}
@@ -50,17 +58,32 @@ class CaptionerBundle:
     def lm(self):
         return self.model.lm
 
+    def enable_int8_decode(self) -> "CaptionerBundle":
+        """Quantize the LM once for int8 decode (models/gpt2.quantize_params):
+        int8 weights with per-output-channel scales and an int8 KV cache.
+        Only `lm_decode` switches. Greedy tokens can differ from the float
+        path at quantization boundaries."""
+        from ..lm.registry import normalize_lm_type
+        from .gpt2 import quantize_params
+
+        t = normalize_lm_type(self.cap_cfg.lm_type)
+        if t != "gpt2":
+            raise NotImplementedError(f"int8 decode of {t!r} is not ported yet (ROADMAP.md "
+                                      "item 10: the GPT-J and T5 int8 modules)")
+        self._int8_lm = quantize_params(self.model.lm)
+        return self
+
     @property
     def lm_decode(self):
-        """The LM module decode paths drive (the int8 variant comes with the
-        int8 slice)."""
-        return self.model.lm
+        """The LM module decode paths drive: int8 once enabled."""
+        return self._int8_lm if self._int8_lm is not None else self.model.lm
 
     def make_serving_engine(self, settings, slots: int = 256, **kw):
         """Continuous-batching engine over this bundle's decode LM, on the
         bundle's device. Drive it with `eng.serve(requests,
         prefix_pool=...)`, where the pool rows are project_prefix outputs.
-        The activation dtype defaults to the LM weights' dtype."""
+        The activation dtype defaults to the decode LM's wte dtype (bf16
+        for the int8 LM)."""
         from ..decode.serving import ServingEngine
 
         kw.setdefault("dtype", self.lm_decode.wte.dtype)

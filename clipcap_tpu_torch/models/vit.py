@@ -11,11 +11,14 @@
   monkeypatched forward, reference inference.py:422-444) and "tokens"
   (BLIP/timm: final norm over all tokens, no projection).
 
-The JAX module's `init` is the `ViT` constructor and `apply` is `ViT.forward`.
+The JAX module's `init` is the `ViT` constructor and `apply` is `ViT.forward`;
+`quantize_params` gives the int8 encoder (its linears int8, attention still
+K1 on CUDA).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -127,3 +130,16 @@ class ViT(nn.Module):
             return self.ln_post(x)
         raise ValueError(f"unknown ViT output mode {output!r}")
 
+
+def quantize_params(vit: ViT) -> ViT:
+    """The int8 encoder (JAX vit.quantize_params): a copy of `vit` whose
+    patch, QKV, attention-out and MLP weights are per-output-channel int8
+    (ops.quant.Int8Linear, which quant.linear dispatches on); LayerNorms,
+    embeddings, biases and the output projection keep their dtype."""
+    out = copy.deepcopy(vit)
+    out.patch = quant.Int8Linear.quantize(vit.patch.weight, vit.patch.bias)
+    for blk, src in zip(out.blocks, vit.blocks):
+        for name in ("qkv", "out", "fc1", "fc2"):
+            lin = getattr(src, name)
+            setattr(blk, name, quant.Int8Linear.quantize(lin.weight, lin.bias))
+    return out

@@ -7,6 +7,7 @@ quick_gelu and GPT-2's tanh-approximated "gelu_new".
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,9 +26,25 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+@functools.lru_cache(maxsize=None)
+def _gelu_new_constants(dtype: torch.dtype):
+    """gelu_new's constants as JAX holds them for an input of `dtype`: a
+    weakly typed constant takes the input's dtype (0.044715 is
+    0.044677734375 in bf16), and sqrt(2/pi) is taken in f32, then cast.
+    Returned as Python floats, each exact in `dtype`."""
+    k = torch.tensor(0.044715, dtype=dtype).item()
+    c = torch.sqrt(torch.tensor(2.0 / math.pi, dtype=torch.float32)).to(dtype).item()
+    return k, c
+
+
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
-    """GPT-2's tanh-approximated GELU (HF activation "gelu_new")."""
-    return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * torch.pow(x, 3.0))))
+    """GPT-2's tanh-approximated GELU (HF activation "gelu_new"), in JAX's
+    order and with its constants, so that in bf16 each op rounds as the JAX
+    package's does. x^3 is taken in f32 and rounded once, as XLA's power
+    is (the CPU's bf16 torch.pow rounds differently)."""
+    k, c = _gelu_new_constants(x.dtype)
+    cube = torch.pow(x.float(), 3.0).to(x.dtype)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + k * cube)))
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

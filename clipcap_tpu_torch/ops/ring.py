@@ -48,18 +48,21 @@ def refill_positions(idx: int, prefix_len: int, a_len: int, device="cuda") -> to
 def paste_rows(big: torch.Tensor, small: torch.Tensor, q: int, rp: torch.Tensor,
                time_axis: int) -> torch.Tensor:
     """Write `small`'s R rows IN PLACE into `big` at the contiguous batch-row
-    block [q, q+R) (axis 1) and the ring positions `rp` along `time_axis`;
-    returns `big`.
+    block [q, q+R) (axis 1) and the ring positions `rp` along `time_axis`
+    (2 for the float cache [L, B, T, H, Dh]; 3 for the int8 cache's
+    [L, B, H, T, Dh] slabs and [L, B, H, T] scales); returns `big`.
 
     One indexed write of the row block at the ring slots. The JAX version
     rolls a doubled array to get around XLA's scatter lowering and leaves
     junk outside the window; here positions outside `rp` keep what they
     held. Either is safe: ring_layout masks them for the refilled rows, and
     no other row reads these rows."""
-    if time_axis != 2 or big.dim() != 5:
-        raise ValueError("paste_rows takes [L, B, T, H, Dh] caches (time axis 2)")
-    r = small.shape[1]
-    big[:, q: q + r, rp.to(big.device)] = small.to(big.dtype)
+    if not 2 <= time_axis < big.dim():
+        raise ValueError(f"time axis {time_axis} of a {big.dim()}-d cache slab")
+    index = [slice(None)] * big.dim()
+    index[1] = slice(q, q + small.shape[1])
+    index[time_axis] = rp.to(big.device)
+    big[tuple(index)] = small.to(big.dtype)
     return big
 
 

@@ -192,7 +192,8 @@ def test_infer_main_runs_end_to_end(world, tmp_path):
     assert len(data) == 3 and all("scores" in v for v in data.values())
     assert json.loads((tmp_path / "run_shutterstock.json").read_text()) == data
     # the JAX flags the port does not have yet are refused, never ignored
-    for extra in (["--int8_decode"], ["--tensor_parallel", "2"],
+    # (--int8_decode runs: tests/test_torch_int8_paths.py)
+    for extra in (["--tensor_parallel", "2"],
                   ["--speculative_draft_checkpoint", str(d / "ckpt")]):
         with pytest.raises(NotImplementedError):
             infer.main(args + extra)
@@ -207,9 +208,8 @@ def test_serve_main_matches_jax(world, tmp_path):
     assert serve.main(args + ["--out_jsonl", str(tmp_path / "port.jsonl"), "--device", "cpu"]) == 5
     want = (tmp_path / "jax.jsonl").read_text().splitlines()
     assert (tmp_path / "port.jsonl").read_text().splitlines() == want and len(want) == 5
-    for extra in (["--int8_decode"], ["--target_p50_s", "0.5"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(args + ["--out_jsonl", str(tmp_path / "x.jsonl")] + extra)
+    with pytest.raises(NotImplementedError):  # --int8_decode runs: test_torch_int8_paths.py
+        serve.main(args + ["--out_jsonl", str(tmp_path / "x.jsonl"), "--target_p50_s", "0.5"])
 
 
 def test_loaders_refuse_what_is_not_ported(world):

@@ -91,6 +91,43 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
         assert f"'{name}'" in out.stdout, name
 
 
+# int8 decode: ops/quant, GPT-2's int8 module and caches, the int8 ViT, the
+# bundle's switch and the paths that carry the int8 cache
+INT8_MODULES = {"clipcap_tpu_torch.ops.quant": ["Int8Linear", "int8_linear", "quantize_rows",
+                                                "quantize_weight", "int_mm"],
+                "clipcap_tpu_torch.models.gpt2": ["GPT2Int8", "Int8KVCache", "Int8BeamCache",
+                                                  "quantize_params"],
+                "clipcap_tpu_torch.models.vit": ["quantize_params"],
+                "clipcap_tpu_torch.models.bundle": ["CaptionerBundle"],
+                "clipcap_tpu_torch.decode.beam": ["beam_search_batched"],
+                "clipcap_tpu_torch.decode.clip_guided": ["generate_clip_guided_batch"]}
+
+_IMPORT_INT8 = """
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "triton", "clipcap_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import importlib, torch
+for name, attrs in %r.items():
+    module = importlib.import_module(name)
+    assert all(hasattr(module, a) for a in attrs), name
+assert hasattr(importlib.import_module("clipcap_tpu_torch.models.bundle").CaptionerBundle,
+               "enable_int8_decode")
+print("CUDA", torch.cuda.is_available())
+print("INT8 OK")
+""" % (INT8_MODULES,)
+
+
+def test_int8_modules_import_without_jax_or_cuda():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_INT8], capture_output=True, text=True,
+                         cwd=ROOT, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "INT8 OK" in out.stdout and "CUDA False" in out.stdout, out.stdout
+
+
 def test_source_has_no_jax_or_jax_package_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|clipcap_tpu)(\.|\s|$)", re.M)
     top = re.compile(r"^(import|from)\s+(PIL|regex|transformers)(\.|\s|$)", re.M)

@@ -116,8 +116,10 @@ def test_linear_float_branch(rng):
     want = JQ.linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
     got = TQ.linear(torch.from_numpy(x), torch.from_numpy(w.T.copy()), torch.from_numpy(b))
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        TQ.linear(torch.from_numpy(x), {"q": None, "s": None})
+    # a quantized weight takes the int8 branch (compiled, as JAX's decode runs it)
+    want = jax.jit(JQ.linear)(jnp.asarray(x), JQ.quantize_weight(jnp.asarray(w)))
+    got = TQ.linear(torch.from_numpy(x), TQ.quantize_weight(torch.from_numpy(w.T.copy())))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6, atol=0)
 
 
 def _assert_same_kept(got, want):
