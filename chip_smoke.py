@@ -2,7 +2,7 @@
 """Drive the PyTorch port's captioning, serving, evaluation and training
 paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--xl_layers N]
 
 From the root of the repository, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It
@@ -73,17 +73,27 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 9. drives int8 decode (phase (i), run before (h)): the int8 products
    (torch._int_mm at every GPT2-XL linear shape and the paths' rows, the
    f32 attention dots on int8 values) against exact CPU products; a
-   GPT2-XL captioner seeded on the card in bf16 and quantized by
-   bundle.enable_int8_decode() (every q and s against the CPU's, prefill
-   logits within 16 bf16 steps); the no-beam sweep on the bf16 and the
-   int8 LM (device ms and launches per step, busy share, captions/s);
+   GPT2-XL captioner (full width, 12 of its 48 layers since phase (j) came,
+   for the run's time; --xl_layers 48 runs it whole) seeded on the card in
+   bf16 and quantized by bundle.enable_int8_decode() (every q and s against
+   the CPU's, prefill logits within 16 bf16 steps); the no-beam sweep on
+   the bf16 and the int8 LM (device ms and launches per step, busy share, captions/s);
    int8 beam search at 64 images x beam 5 x 67 tokens through the
    shared-prefix cache, its step bit-equal to the replicated cache's;
    int8 serving of 256 requests on 64 slots, greedy and "fused_step"; the
    int8 ViT-B/32 at B=64 (K1 12 a call, cosine to the float encode above
    0.995); cli.infer, cli.serve and cli.evaluate with --int8_decode on
    (f)'s checkpoint, the best beams of 2 images against the CPU;
-10. prints one JSON line of kernels, the card line, and last
+10. drives GPT-J-6B (phase (j), after (i), before (h)): K2/K3/K4 against
+   their plain versions at its vocabulary of 50400 (9, 16, 64, 72 and 512
+   rows, every cluster size there); the captioner (CLIP ViT-B/32, the
+   mapper at 4096, GPT-J-6B: 28 layers, 16 heads of 256) seeded on the
+   card in bf16, a 2-layer cut held against the CPU (logits, the int8
+   quantization); the no-beam sweep, beam search and serving in bf16 and
+   in int8; speculative greedy decode with the model as its own draft and
+   with the GPT-2 124M captioner as a draft; the three CLIs on a 2-layer
+   GPT-J checkpoint, with and without --int8_decode;
+11. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -409,7 +419,11 @@ def filter_bound(rows: int, vocab: int):
 # 2 top-p), the main path's 72
 SAMPLER_ROWS = [1, 8, 9, 16, 64, 72, 512]
 TIMED_ROWS = [8, 16, 64, 72, 512]
-HARD_KK = [1.0, 40.0, 50257.0]
+# GPT-J's vocabulary of 50400 at the GPT-J path's rows: --no_beam's 9, the
+# evaluate chunk's 16, serving's 64 slots, the sweep's 72, and 512 (one
+# block per row, the widest row a block holds)
+GPTJ_VOCAB, GPTJ_SAMPLER_ROWS = 50400, [9, 16, 64, 72, 512]
+HARD_KK = [1.0, 40.0]  # and the whole vocabulary
 HARD_PP = [0.0, 1e-4, 0.5, 0.999, 1.0]
 TIE_MARGIN = 1e-5  # hard rows keep top-p this far (relative) from every cumulative mass
 
@@ -447,7 +461,7 @@ def hard_rows(torch, FS, vocab):
              rng.normal(size=vocab) * 10, np.round(rng.normal(size=vocab) * 4) / 4]
     kinds[2][rng.random(vocab) < 0.05] = -np.inf
     rows, kks, pps = [], [], []
-    for k in HARD_KK:
+    for k in HARD_KK + [float(vocab)]:
         for p in HARD_PP:
             for kind in kinds:
                 rows.append(kind)
@@ -505,12 +519,14 @@ def prologue_plain(torch, x, appears, suppress, penalty, temperature, eos):
     return x * (1.0 / temperature)
 
 
-def check_sampler(torch, FS, S):
+def check_sampler(torch, FS, S, vocab: int = 50257, sampler_rows=SAMPLER_ROWS,
+                  timed_rows=TIMED_ROWS):
     """K2/K3 (and K4's correctness) against their plain versions at every
-    row count in SAMPLER_ROWS, on hard rows, for determinism, Philox and
-    the independence of the cluster size; then device times at TIMED_ROWS.
-    Returns the K2/K3 and K4 entries and K4's launches in this phase."""
-    vocab, eos = 50257, 50256
+    row count in `sampler_rows` of `vocab`, on hard rows, for determinism,
+    Philox and the independence of the cluster size; then device times at
+    `timed_rows`. Returns the K2/K3 and K4 entries (at 72 rows, with the
+    timed sweep) and K4's launches in this phase."""
+    eos = 50256
     k4_before = FS.LAUNCHES["fused_filter"]
     worst = {"K2": 0.0, "K3": 0.0}
 
@@ -544,7 +560,7 @@ def check_sampler(torch, FS, S):
                                 suppress_eos=suppress.float(), want_eos_lp=True)
 
     clusters, gaps = {}, []
-    for rows in SAMPLER_ROWS:
+    for rows in sampler_rows:
         x, top_k, top_p, noise, appears, suppress = sampler_inputs(torch, S, rows, vocab, rows)
         kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
         clusters[rows] = FS.cluster_size(rows, vocab)
@@ -608,7 +624,7 @@ def check_sampler(torch, FS, S):
             assert_close(torch, small[3], big[3][:8], 1e-6, SAMPLER_RTOL,
                          "K3 eos_lp across cluster sizes")
             say(f"K3 rows 0-7 of the 512-row batch (cluster {clusters[512]}) and alone "
-                f"(cluster {clusters[8]}): same next/alt with Philox, alt_prob/eos_lp within "
+                f"(cluster {FS.cluster_size(8, vocab)}): same next/alt with Philox, alt_prob/eos_lp within "
                 f"rtol {SAMPLER_RTOL}")
 
     # hard rows: ties, an all-equal row, -inf columns, k in {1, 40, V}, p near 0 and 1
@@ -628,14 +644,14 @@ def check_sampler(torch, FS, S):
     check(bool(kept[torch.arange(rows, device="cuda"), nxt.long()].all()),
           "K2 hard rows with Philox sampled a filtered token")
     say(f"hard rows [{rows}, {vocab}] (0.25-quantised, all-equal, -inf columns, narrow; top-k "
-        f"{HARD_KK}, top-p {HARD_PP} kept {TIE_MARGIN} from every cumulative mass): K2/K3 "
+        f"{HARD_KK + [vocab]}, top-p {HARD_PP} kept {TIE_MARGIN} from every cumulative mass): K2/K3 "
         f"next/alt exact, K4 exact, Philox inside the kept set")
 
     # device times at the main path's flags: top-p only, Philox, no alt_prob
     step_main = dict(penalty=1.2, eos_token_id=eos, want_eos_lp=True)
     sweep = {"fused_filter_sample": {}, "fused_step_sample": {}, "fused_filter": {}}
     results = {}
-    for rows in TIMED_ROWS:
+    for rows in timed_rows:
         clusters[rows] = FS.cluster_size(rows, vocab)
         x, top_k, top_p, _, appears, suppress = sampler_inputs(torch, S, rows, vocab, rows)
         kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
@@ -1986,6 +2002,10 @@ def train_path(torch, counters, card: str, work: Path) -> tuple:
 # --- 9. int8 decode at GPT2-XL width -------------------------------------------------
 
 XL_D, XL_IMAGES, XL_BEAM_IMAGES = 1600, 8, 64
+# GPT2-XL's depth in (i) by default: 12 of its 48 layers, cut when phase (j)
+# joined the run to keep the whole smoke well inside its time limit (the
+# int8 path is per layer the same at any depth); --xl_layers 48 runs it whole
+XL_LAYERS = 12
 INT8_ROWS = (9, 16, 72, 320)  # the paths' rows: --no_beam, evaluate, the sweep, beam
 # card against CPU for the int8 LM (bf16 activations): a logit within this
 # many bf16 steps (2^-8) of the logits' scale; a greedy or beam choice may
@@ -1997,6 +2017,35 @@ INT8_SOLO = 4  # served int8 requests held against their solo runs
 
 def int8_bound(scale: float) -> float:
     return INT8_LOGIT_STEPS * 2.0 ** -8 * scale
+
+
+def timed_call(torch, fn, warm):
+    """fn() after warm(), its wall seconds between two synchronizes."""
+    warm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def per_step_profile(torch, label: str, run, short: int, long: int) -> dict:
+    """Device ms and launches per decode step, from profiles of the same
+    call at two step counts (their difference over the extra steps, so
+    the encode and the prefill drop out), and the busy share of the
+    longer one."""
+    walls, profs = {}, {}
+    for n in (short, long):
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        walls[n] = (time.perf_counter() - t0) * 1e3
+        profs[n] = profile_call(torch, f"{label}, {n} steps", lambda: run(n), walls[n])
+    return dict(device_ms_per_step=(profs[long]["busy_ms"] - profs[short]["busy_ms"])
+                / (long - short),
+                launches_per_step=(profs[long]["launches"] - profs[short]["launches"])
+                / (long - short),
+                busy_share=profs[long]["busy_ms"] / profs[long]["wall_ms"])
 
 
 def check_int8_products(torch):
@@ -2075,10 +2124,12 @@ def check_int8_quantization(torch, lm, q8):
     return blocks, head_b, q8.wte.numel() * q8.wte.element_size()
 
 
-def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle) -> tuple:
+def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle,
+              xl_layers: int = XL_LAYERS) -> tuple:
     """(i) int8 decode. (i0) the int8 products exact; (i1) a GPT2-XL
-    captioner (CLIP ViT-B/32, the mapper at width 1600, GPT2-XL: 48 layers,
-    25 heads, vocab 50257) seeded on the card in bf16, its LM quantized by
+    captioner (CLIP ViT-B/32, the mapper at width 1600, GPT2-XL at full
+    width: 1600, 25 heads, vocab 50257, xl_layers of its 48 layers) seeded
+    on the card in bf16, its LM quantized by
     bundle.enable_int8_decode() and held against the CPU (q and s equal,
     prefill logits of 2 rows within INT8_LOGIT_STEPS); (i2) the no-beam
     sweep (8 images x 9 top-p, 75 steps) on the bf16 LM, then on the int8
@@ -2120,7 +2171,9 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
     cap_cfg = CaptionerConfig(lm_type="gpt2", visual_encoder_type="CLIP",
                               visual_encoder_variant="ViT-B/32",
                               mapper=MapperConfig(dim_embedding=XL_D))
-    xl = CaptionerBundle.create(cap_cfg, GPT2Config.variant("gpt2-xl"), IdTokenizer(),
+    xl_cfg = dataclasses.replace(GPT2Config.variant("gpt2-xl"), n_layer=xl_layers)
+    xl_name = f"XL ({xl_layers} of 48 layers)"
+    xl = CaptionerBundle.create(cap_cfg, xl_cfg, IdTokenizer(),
                                 ViTConfig.clip_variant("ViT-B/32"), seed=7, device="cuda",
                                 dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -2139,37 +2192,11 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
         return NoBeamCaptionSampler(top_p_values=TOP_P_SWEEP, max_decode_length=steps,
                                     device="cuda").sample_batch(xl, pixels[:XL_IMAGES])
 
-    def timed(fn, warm):
-        warm()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def per_step(label: str, run, short: int, long: int) -> dict:
-        """Device ms and launches per decode step, from profiles of the same
-        call at two step counts (their difference over the extra steps, so
-        the encode and the prefill drop out), and the busy share of the
-        longer one."""
-        walls, profs = {}, {}
-        for n in (short, long):
-            t0 = time.perf_counter()
-            run(n)
-            torch.cuda.synchronize()
-            walls[n] = (time.perf_counter() - t0) * 1e3
-            profs[n] = profile_call(torch, f"{label}, {n} steps", lambda: run(n), walls[n])
-        return dict(device_ms_per_step=(profs[long]["busy_ms"] - profs[short]["busy_ms"])
-                    / (long - short),
-                    launches_per_step=(profs[long]["launches"] - profs[short]["launches"])
-                    / (long - short),
-                    busy_share=profs[long]["busy_ms"] / profs[long]["wall_ms"])
-
     # (i2), the bf16 LM first: the float module beside the int8 one
     t_sub = time.perf_counter()
-    _, float_s = timed(sweep, lambda: sweep(2))
-    float_prof = per_step("(i2) bf16 XL sweep", sweep, 8, 16)
-    say(f"(i2) bf16 XL sweep measured in {time.perf_counter() - t_sub:.1f} s")
+    _, float_s = timed_call(torch, sweep, lambda: sweep(2))
+    float_prof = per_step_profile(torch, f"(i2) bf16 {xl_name} sweep", sweep, 8, 16)
+    say(f"(i2) bf16 {xl_name} sweep measured in {time.perf_counter() - t_sub:.1f} s")
 
     t0 = time.perf_counter()
     xl.enable_int8_decode()
@@ -2199,21 +2226,21 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
     t_sub = time.perf_counter()
     torch.cuda.synchronize()
     counters(reset=True)
-    caps, int8_s = timed(sweep, lambda: sweep(2))
+    caps, int8_s = timed_call(torch, sweep, lambda: sweep(2))
     rise = counters()["fused_filter_sample"]
     check(rise == 2 + n_steps, f"(i2) K2 launched {rise} times in the int8 warm-up and sweep, "
           f"want one per decode step ({2 + n_steps})")
     ids = [int(t) for c in caps for s_ in c for t in s_.split()]
     check(len(caps) == XL_IMAGES and all(len(c) == len(TOP_P_SWEEP) for c in caps)
           and all(0 <= t < 50257 for t in ids), "(i2) int8 sweep: wrong captions")
-    int8_prof = per_step("(i2) int8 XL sweep", sweep, 8, 16)
-    say(f"(i2) int8 XL sweep measured in {time.perf_counter() - t_sub:.1f} s")
+    int8_prof = per_step_profile(torch, f"(i2) int8 {xl_name} sweep", sweep, 8, 16)
+    say(f"(i2) int8 {xl_name} sweep measured in {time.perf_counter() - t_sub:.1f} s")
     sweep_rates = {}
     for name, secs, prof in (("bf16", float_s, float_prof), ("int8", int8_s, int8_prof)):
         sweep_rates[name] = dict(captions_per_s=n_rows / secs, wall_ms=secs * 1e3, **prof)
         r = sweep_rates[name]
-        say(f"(i2) {name} XL sweep, {XL_IMAGES} images x {len(TOP_P_SWEEP)} top-p ({n_rows} rows, "
-            f"{n_steps} steps) on {card}: {r['captions_per_s']:.2f} captions/s; device "
+        say(f"(i2) {name} {xl_name} sweep, {XL_IMAGES} images x {len(TOP_P_SWEEP)} top-p "
+            f"({n_rows} rows, {n_steps} steps) on {card}: {r['captions_per_s']:.2f} captions/s; device "
             f"{r['device_ms_per_step']:.3f} ms and {r['launches_per_step']:.1f} launches per step; "
             f"busy share {r['busy_share']:.3f} (per step: profiles at 8 and 16 steps, "
             f"differenced)")
@@ -2245,15 +2272,15 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
         return beam_search_batched(q8, prompt, beam_size=beam, max_new_tokens=steps,
                                    stop_token_id=STOP, device="cuda")
 
-    out, beam_s = timed(beam_call, lambda: beam_call(2))
+    out, beam_s = timed_call(torch, beam_call, lambda: beam_call(2))
     check(bool(torch.isfinite(out["scores"]).all()) and out["tokens"].shape == (
         XL_BEAM_IMAGES, beam, BEAM_NEW), "(i3) int8 beam: non-finite scores or wrong shape")
-    beam_prof = profile_call(torch, "(i3) int8 XL beam", beam_call, beam_s * 1e3)
+    beam_prof = profile_call(torch, f"(i3) int8 {xl_name} beam", beam_call, beam_s * 1e3)
     beam_rates = dict(captions_per_s=XL_BEAM_IMAGES / beam_s, wall_ms=beam_s * 1e3,
                       device_ms_per_step=beam_prof["busy_ms"] / BEAM_NEW,
                       launches_per_step=beam_prof["launches"] / BEAM_NEW,
                       busy_share=beam_prof["busy_ms"] / beam_prof["wall_ms"])
-    say(f"(i3) int8 XL beam {XL_BEAM_IMAGES} images x beam {beam} x {BEAM_NEW} tokens "
+    say(f"(i3) int8 {xl_name} beam {XL_BEAM_IMAGES} images x beam {beam} x {BEAM_NEW} tokens "
         f"({XL_BEAM_IMAGES * beam} rows, shared-prefix cache) on {card}: "
         f"{beam_rates['captions_per_s']:.2f} captions/s; device "
         f"{beam_rates['device_ms_per_step']:.3f} ms and {beam_rates['launches_per_step']:.1f} "
@@ -2294,8 +2321,8 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
                                  p50_s=float(np.percentile(lat, 50)),
                                  p99_s=float(np.percentile(lat, 99)),
                                  occupancy=stats["occupancy"], steps=stats["steps"])
-        say(f"(i4) int8 XL serve {SERVE_REQUESTS} requests ({name}; caps 8-24), {SERVE_SLOTS} "
-            f"slots on {card}: {serve_rates[name]['captions_per_s']:.2f} captions/s; latency_s "
+        say(f"(i4) int8 {xl_name} serve {SERVE_REQUESTS} requests ({name}; caps 8-24), "
+            f"{SERVE_SLOTS} slots on {card}: {serve_rates[name]['captions_per_s']:.2f} captions/s; latency_s "
             f"p50 {serve_rates[name]['p50_s']:.4f}, p99 {serve_rates[name]['p99_s']:.4f}; "
             f"occupancy {stats['occupancy']}; {stats['steps']} steps; K3 +{k3}")
     flips = 0
@@ -2420,10 +2447,454 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
         f"{cli_s['evaluate']:.1f} s; well-formed outputs; validation loss "
         f"{scores['validation_loss']:.4f}; the beam check {cli_s['beam_check']:.1f} s")
     say(f"int8 phase (i): {time.perf_counter() - t_phase:.1f} s")
-    return launches, dict(sweep=sweep_rates, beam=beam_rates, serving=serve_rates,
-                          vit=vit_rates, prefill_err=err_i1, cli_s=cli_s,
+    return launches, dict(xl_layers=xl_layers, sweep=sweep_rates, beam=beam_rates,
+                          serving=serve_rates, vit=vit_rates, prefill_err=err_i1, cli_s=cli_s,
                           serve_flips=flips, beam_flips=flips6,
                           int8_bytes=dict(blocks=blocks_b, lm_head=head_b, wte=wte_b))
+
+
+# --- 10. GPT-J-6B: the port's GPT-J captioner and speculative decoding ----------------
+
+GPTJ_IMAGES, GPTJ_CUT = 8, 2  # the sweep's images; the CPU cut's and the checkpoint's layers
+GPTJ_BEAM_IMAGES = {"bf16": 64, "int8": 32}  # int8 beam at half the images, for the run's time
+GPTJ_SOLO = 2  # served requests held against their solo generate
+SPEC_GAMMA, SPEC_NEW = 4, 67
+
+
+def gptj_cut(lm, n_layer: int):
+    """The first n_layer blocks of a GPTJ with its wte, ln_f and lm_head, as
+    a GPTJ that shares the model's tensors (nothing is copied)."""
+    import dataclasses
+
+    from torch import nn
+
+    cut = copy.copy(lm)
+    cut._modules = dict(lm._modules)  # the copy's own module table
+    cut.blocks = nn.ModuleList(list(lm.blocks)[:n_layer])
+    cut.cfg = dataclasses.replace(lm.cfg, n_layer=n_layer)
+    return cut
+
+
+def check_gptj_cut(torch, cut, prompt) -> dict:
+    """(j0) The card's GPT-J against the port on the CPU, on the first
+    GPTJ_CUT layers at full width with wte, ln_f and lm_head (the same bf16
+    tensors): prefill logits of 2 rows, a decode step and a ring step within
+    INT8_LOGIT_STEPS bf16 steps of the logits' scale; the cut's int8
+    quantization on the card equal to the CPU's (every q, s, bias and
+    LayerNorm), and its int8 prefill and decode step within the same bound.
+    Returns the errors and the logits' scale."""
+    from clipcap_tpu_torch.models.gptj import quantize_params
+
+    cpu = copy.deepcopy(cut).cpu()
+    errs = {}
+
+    def steps(lm, p, ring: bool):
+        """Prefill (every position), a decode step on the argmax tokens and
+        a ring step after them."""
+        dev = p.device
+        logits, cache = lm.prefill(p, lm.init_cache(p.shape[0], p.shape[1] + 2),
+                                   full_logits=True)
+        tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        step, cache = lm.decode_step(lm.embed_tokens(tok)[:, None].to(p.dtype), cache)
+        out = [logits[:, -1].float(), step.float()]
+        if ring:
+            rc = lm.init_cache(p.shape[0], p.shape[1] + 3)
+            _, rc = lm.prefill(p, rc)
+            pos = torch.full((p.shape[0],), p.shape[1], dtype=torch.int64, device=dev)
+            start = torch.zeros(p.shape[0], dtype=torch.int64, device=dev)
+            r, _ = lm.decode_step_ring(lm.embed_tokens(tok)[:, None].to(p.dtype), rc, pos, start)
+            out.append(r.float())
+        return out, float(logits.float().abs().max())
+
+    with torch.no_grad():
+        card, scale = steps(cut, prompt, True)
+        want, _ = steps(cpu, prompt.cpu(), True)
+        for name, a, b in zip(("prefill", "decode", "ring"), card, want):
+            errs[name] = max_abs(a.cpu(), b)
+            check(bool(torch.isfinite(a).all()) and errs[name] <= int8_bound(scale),
+                  f"(j0) bf16 {name} logits card vs CPU: max abs err {errs[name]:.4g} > "
+                  f"{int8_bound(scale):.4g}")
+        q_card, q_cpu = quantize_params(cut), quantize_params(cpu)
+        sd_cpu = q_cpu.state_dict()
+        for name, t in q_card.state_dict().items():
+            check(t.dtype == sd_cpu[name].dtype and torch.equal(t.cpu(), sd_cpu[name]),
+                  f"(j0) int8 {name} differs from the CPU's quantization")
+        card8, _ = steps(q_card, prompt, False)
+        want8, _ = steps(q_cpu, prompt.cpu(), False)
+        for name, a, b in zip(("int8 prefill", "int8 decode"), card8, want8):
+            errs[name] = max_abs(a.cpu(), b)
+            check(bool(torch.isfinite(a).all()) and errs[name] <= int8_bound(scale),
+                  f"(j0) {name} logits card vs CPU: max abs err {errs[name]:.4g} > "
+                  f"{int8_bound(scale):.4g}")
+    del cpu, q_card, q_cpu, sd_cpu
+    return dict(errs=errs, scale=scale)
+
+
+def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle) -> tuple:
+    """(j) GPT-J-6B captioning and speculative decoding at full width: CLIP
+    ViT-B/32, the default mapper at width 4096 and GPT-J-6B (28 layers,
+    4096 wide, 16 heads of 256, rotary 64, vocabulary 50400), seeded on the
+    card in bf16. (j-) K2/K3/K4 against their plain versions at GPT-J's
+    vocabulary (check_sampler at GPTJ_SAMPLER_ROWS), the kernel's
+    vocabulary limit and cluster sizes there; (j0) the build, and the
+    2-layer cut against the CPU (check_gptj_cut); (j1) the no-beam sweep,
+    GPTJ_IMAGES images x 9 top-p x 75 steps; (j2) beam search, 64 images x
+    beam 5 x 67 tokens on float caches, the best beams of 2 images of the
+    card's cut against the CPU's; (j3) serving, 256 requests on 64 slots,
+    greedy and "fused_step"; (j4) speculative greedy at batch 1, gamma 4,
+    67 tokens on the bf16 target: plain greedy, the target as its own draft,
+    and (f)'s GPT-2 124M captioner as a cross-family draft; then (j1)-(j3)
+    again on the int8 LM (bundle.enable_int8_decode(): beam on the
+    replicated int8 cache, at 32 images to keep the run's time); (j5) the CLIs on a GPT-J checkpoint written at
+    full width and 2 layers (a 1-layer mapper): cli.infer by beam,
+    --no_beam and --speculative_draft_checkpoint with (f)'s checkpoint,
+    cli.serve and cli.evaluate, each also with --int8_decode. The launch
+    counters are set to 0 just before (j1) and read after (j5)."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+    import types
+
+    import numpy as np
+
+    from clipcap_tpu_torch.cli import evaluate as eval_cli
+    from clipcap_tpu_torch.cli import infer as infer_cli
+    from clipcap_tpu_torch.cli import serve as serve_cli
+    from clipcap_tpu_torch.cli.loading import load_captioner
+    from clipcap_tpu_torch.core.config import (CaptionerConfig, GPTJConfig, MapperConfig,
+                                               ViTConfig)
+    from clipcap_tpu_torch.data.preprocessing import normalize_on_device
+    from clipcap_tpu_torch.decode.beam import beam_search_batched
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.decode.serving import Request
+    from clipcap_tpu_torch.decode.speculative import speculative_greedy
+    from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+    from clipcap_tpu_torch.models.gptj import GPTJ, GPTJInt8
+    from clipcap_tpu_torch.train.checkpoints import save_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (j-) the sampler kernels at GPT-J's vocabulary; their launches here are
+    # comparisons with the plain versions and are not counted on the path
+    t0 = time.perf_counter()
+    FS._check_vocab(GPTJ_VOCAB)
+    k234, _ = check_sampler(torch, FS, S, vocab=GPTJ_VOCAB, sampler_rows=GPTJ_SAMPLER_ROWS,
+                            timed_rows=GPTJ_SAMPLER_ROWS)
+    clusters = {r: FS.cluster_size(r, GPTJ_VOCAB) for r in GPTJ_SAMPLER_ROWS}
+    check(clusters[512] == 1, f"K2 at [512, {GPTJ_VOCAB}] uses a cluster of {clusters[512]}, "
+          "want 1 (one block per row)")
+    say(f"(j-) sampler kernels at V={GPTJ_VOCAB}: the kernel holds up to {FS._max_vocab} tokens "
+        f"in a cluster; cluster sizes {clusters}; checked in {time.perf_counter() - t0:.1f} s")
+
+    # (j0) the captioner in bf16
+    t0 = time.perf_counter()
+    lm_cfg = GPTJConfig.variant("EleutherAI/gpt-j-6B")
+    cap_cfg = CaptionerConfig(lm_type="gptj", lm_variant="EleutherAI/gpt-j-6B",
+                              visual_encoder_type="CLIP", visual_encoder_variant="ViT-B/32",
+                              mapper=MapperConfig(dim_embedding=lm_cfg.n_embd))
+    bj = CaptionerBundle.create(cap_cfg, lm_cfg, IdTokenizer(), ViTConfig.clip_variant("ViT-B/32"),
+                                seed=17, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lm = bj.model.lm
+    check(isinstance(lm, GPTJ) and lm.wte.dtype == torch.bfloat16, "(j0) not a bf16 GPTJ")
+    lm_params = sum(p.numel() for p in lm.parameters())
+    map_params = sum(p.numel() for p in bj.model.mapper.parameters())
+    say(f"(j0) GPT-J-6B captioner seeded on the card in bf16 in {build_s:.1f} s: LM "
+        f"{lm_params / 1e9:.3f} B params ({lm_params * 2 / 1e9:.2f} GB; {lm_cfg.n_layer} layers, "
+        f"width {lm_cfg.n_embd}, {lm_cfg.n_head} heads of {lm_cfg.n_embd // lm_cfg.n_head}, "
+        f"rotary {lm_cfg.rotary_dim}, vocab {lm_cfg.vocab_size}), mapper {map_params / 1e9:.3f} B, "
+        f"ViT-B/32 {sum(p.numel() for p in bj.model.visual.parameters()) / 1e6:.1f} M")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    pixels = normalize_on_device(torch.rand(GPTJ_BEAM_IMAGES["bf16"], 3, 224, 224,
+                                            generator=gen, device="cuda"))
+    with torch.no_grad():
+        prompt = bj.prefix_from_pixels(pixels)  # [64, 10, 4096] bf16
+    p_len = prompt.shape[1]
+    t0 = time.perf_counter()
+    cut = gptj_cut(lm, GPTJ_CUT)
+    cut_check = check_gptj_cut(torch, cut, prompt[:2])
+    scale = cut_check["scale"]
+    say(f"(j0) the {GPTJ_CUT}-layer cut at full width card vs CPU (bf16 both), max abs err: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in cut_check["errs"].items())
+        + f" (bound {int8_bound(scale):.4g}: {INT8_LOGIT_STEPS} bf16 steps of max|logit| "
+        f"{scale:.3f}); the cut's int8 q, s, biases and LayerNorms equal the CPU's "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    n_rows, n_steps = GPTJ_IMAGES * len(TOP_P_SWEEP), 75
+
+    def sweep(steps: int = n_steps):
+        return NoBeamCaptionSampler(top_p_values=TOP_P_SWEEP, max_decode_length=steps,
+                                    device="cuda").sample_batch(bj, pixels[:GPTJ_IMAGES])
+
+    def beam_call(images: int, steps: int = BEAM_NEW):
+        return beam_search_batched(bj.lm_decode, prompt[:images], beam_size=BEAM,
+                                   max_new_tokens=steps, stop_token_id=STOP, device="cuda")
+
+    pool = bj.project_prefix(torch.randn(SERVE_REQUESTS, 512, generator=gen, device="cuda"))
+    serve_caps = np.random.default_rng(43).integers(8, 25, SERVE_REQUESTS).tolist()
+    reqs = [Request(i, i, max_length=c) for i, c in enumerate(serve_caps)]
+    base = GenerationSettings(max_new_tokens=SERVE_NEW, eos_token_id=EOS)
+    greedy = dataclasses.replace(base, greedy=True)
+    serve_settings = {"greedy": greedy,
+                      "fused_step": dataclasses.replace(base, top_p=0.8, repetition_penalty=1.2,
+                                                        min_length=5, filter_method="fused_step")}
+    results = {}
+
+    def decode_phases(dtype: str) -> None:
+        """(j1)-(j3) on bj.lm_decode: the sweep, beam search and serving."""
+        lmd = bj.lm_decode
+        r = results.setdefault(dtype, {})
+        # (j1) the sweep: K2 at [72, 50400] once a step
+        t_sub = time.perf_counter()
+        k2 = counters()["fused_filter_sample"]
+        caps, secs = timed_call(torch, sweep, lambda: sweep(2))
+        k2 = counters()["fused_filter_sample"] - k2
+        check(k2 == 2 + n_steps, f"(j1) {dtype}: K2 launched {k2} times in the warm-up and the "
+              f"sweep, want one per decode step ({2 + n_steps})")
+        ids = [int(t) for c in caps for s_ in c for t in s_.split()]
+        check(len(caps) == GPTJ_IMAGES and all(len(c) == len(TOP_P_SWEEP) for c in caps)
+              and all(0 <= t < GPTJ_VOCAB for t in ids), f"(j1) {dtype} sweep: wrong captions")
+        prof = per_step_profile(torch, f"(j1) {dtype} GPT-J sweep", sweep, 8, 16)
+        r["sweep"] = dict(captions_per_s=n_rows / secs, wall_ms=secs * 1e3, **prof)
+        say(f"(j1) {dtype} GPT-J sweep, {GPTJ_IMAGES} images x {len(TOP_P_SWEEP)} top-p "
+            f"({n_rows} rows, {n_steps} steps) on {card}: {n_rows / secs:.2f} captions/s; device "
+            f"{prof['device_ms_per_step']:.3f} ms and {prof['launches_per_step']:.1f} launches "
+            f"per step; busy share {prof['busy_share']:.3f} ({time.perf_counter() - t_sub:.1f} s)")
+        # (j2) beam search: 64 images (32 in int8) x beam 5 x 67 tokens
+        t_sub = time.perf_counter()
+        n_img = GPTJ_BEAM_IMAGES[dtype]
+        out, secs = timed_call(torch, lambda: beam_call(n_img), lambda: beam_call(2, 2))
+        check(bool(torch.isfinite(out["scores"]).all()) and out["tokens"].shape == (
+            n_img, BEAM, BEAM_NEW) and int(out["tokens"].max()) < GPTJ_VOCAB,
+              f"(j2) {dtype} beam: non-finite scores, a wrong shape or an id past the vocabulary")
+        prof = profile_call(torch, f"(j2) {dtype} GPT-J beam", lambda: beam_call(n_img),
+                            secs * 1e3)
+        r["beam"] = dict(images=n_img, captions_per_s=n_img / secs, wall_ms=secs * 1e3,
+                         device_ms_per_step=prof["busy_ms"] / BEAM_NEW,
+                         launches_per_step=prof["launches"] / BEAM_NEW,
+                         busy_share=prof["busy_ms"] / prof["wall_ms"],
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        say(f"(j2) {dtype} GPT-J beam {n_img} images x beam {BEAM} x {BEAM_NEW} "
+            f"tokens ({n_img * BEAM} rows) on {card}: "
+            f"{r['beam']['captions_per_s']:.2f} captions/s; device "
+            f"{r['beam']['device_ms_per_step']:.3f} ms and {r['beam']['launches_per_step']:.1f} "
+            f"launches per step; busy share {r['beam']['busy_share']:.3f} "
+            f"({time.perf_counter() - t_sub:.1f} s)")
+        del out
+        # (j3) serving: 256 requests on 64 slots, greedy and "fused_step"
+        t_sub = time.perf_counter()
+        served = {}
+        for name, st in serve_settings.items():
+            eng = bj.make_serving_engine(st, slots=SERVE_SLOTS, steps_per_sync=SERVE_SYNC,
+                                         pipeline_depth=2).warmup()
+            check(eng.lm is lmd and eng.dtype == torch.bfloat16,
+                  f"(j3) {dtype} {name}: the engine does not run the bf16 decode LM")
+            k3 = counters()["fused_step_sample"]
+            t0 = time.perf_counter()
+            res = eng.serve(reqs, seed=7, prefix_pool=pool)
+            wall = time.perf_counter() - t0
+            k3 = counters()["fused_step_sample"] - k3
+            stats = eng.last_stats
+            want_k3 = stats["steps"] if name == "fused_step" else 0
+            check(k3 == want_k3, f"(j3) {dtype} {name}: K3 launched {k3} times over "
+                  f"{stats['steps']} dispatched steps, want {want_k3}")
+            check(sorted(res) == list(range(SERVE_REQUESTS)) and all(
+                0 < len(x["tokens"]) <= serve_caps[i] for i, x in res.items()),
+                  f"(j3) {dtype} {name}: not every request answered within its cap")
+            lat = np.asarray([x["latency_s"] for x in res.values()])
+            served[name] = res
+            r[f"serve_{name}"] = dict(captions_per_s=SERVE_REQUESTS / wall,
+                                      p50_s=float(np.percentile(lat, 50)),
+                                      p99_s=float(np.percentile(lat, 99)),
+                                      occupancy=stats["occupancy"], steps=stats["steps"])
+            say(f"(j3) {dtype} GPT-J serve {SERVE_REQUESTS} requests ({name}; caps 8-24), "
+                f"{SERVE_SLOTS} slots on {card}: {SERVE_REQUESTS / wall:.2f} captions/s; "
+                f"latency_s p50 {r[f'serve_{name}']['p50_s']:.4f}, p99 "
+                f"{r[f'serve_{name}']['p99_s']:.4f}; occupancy {stats['occupancy']}; "
+                f"{stats['steps']} steps; K3 +{k3}")
+            del eng
+        flips = 0
+        for i in range(GPTJ_SOLO):
+            ref = generate(lmd, pool[i:i + 1], dataclasses.replace(greedy, max_length=serve_caps[i]),
+                           device="cuda")
+            want = ref["tokens"][0, : int(ref["lengths"][0])].tolist()
+            got = served["greedy"][i]["tokens"]
+            if got != want:
+                s_ = first_difference(got, want)
+                _, gaps = greedy_with_gaps(torch, lmd, pool[i:i + 1], SERVE_NEW)
+                gap = float(gaps[0, s_])
+                check(gap < int8_bound(scale), f"(j3) {dtype} request {i} differs from its solo "
+                      f"generate at step {s_}, where the solo gap is {gap:.3e}")
+                flips += 1
+        r["serve_flips"] = flips
+        say(f"(j3) the first {GPTJ_SOLO} greedy requests against their solo generate: near-tie "
+            f"flips {flips} ({time.perf_counter() - t_sub:.1f} s)")
+
+    torch.cuda.synchronize()
+    counters(reset=True)
+    decode_phases("bf16")
+
+    # (j2) the best beams of 2 images: the card's cut against the CPU's
+    t0 = time.perf_counter()
+    traced, card_sel, _ = traced_beam(torch, cut, prompt[:2], "cuda")
+    beam_flips, _ = check_beam_vs_cpu(torch, types.SimpleNamespace(lm_decode=cut), prompt[:2],
+                                      traced, card_sel, gap_bound=int8_bound(scale),
+                                      label="(j2) the 2-layer cut's")
+    results["bf16"]["beam_flips"] = beam_flips
+    say(f"(j2) cut beam check: {time.perf_counter() - t0:.1f} s")
+    del traced, card_sel
+
+    # (j4) speculative greedy at batch 1 on the bf16 target
+    t_sub = time.perf_counter()
+    img = pixels[:1]
+    t_prompt = prompt[:1]
+    with torch.no_grad():
+        d_prompt = gpt2_bundle.prefix_from_pixels(img.float())
+        plain_toks, plain_gaps = greedy_with_gaps(torch, lm, t_prompt, SPEC_NEW)
+    plain_toks = plain_toks[0].tolist()
+    plain_gaps = plain_gaps[0].float().cpu()
+    bound = int8_bound(scale)
+
+    def plain_run(n: int = SPEC_NEW):
+        return generate(lm, t_prompt, GenerationSettings(max_new_tokens=n, greedy=True),
+                        device="cuda")
+
+    def spec_run(draft, dprompt, n: int = SPEC_NEW):
+        return speculative_greedy(lm, draft, t_prompt, dprompt, max_new_tokens=n,
+                                  gamma=SPEC_GAMMA, device="cuda")
+
+    spec = {}
+    for name, run in (("plain", plain_run),
+                      ("self_draft", lambda n=SPEC_NEW: spec_run(lm, t_prompt, n)),
+                      ("gpt2_draft", lambda n=SPEC_NEW: spec_run(gpt2_bundle.lm, d_prompt, n))):
+        out, secs = timed_call(torch, run, lambda: run(8))
+        toks = out["tokens"][0].tolist()
+        chunks = int(out["chunks"][0]) if "chunks" in out else SPEC_NEW
+        n_tok = int(out["lengths"][0])
+        diff = first_difference(toks, plain_toks) if toks != plain_toks else SPEC_NEW
+        gap = float(plain_gaps[diff]) if diff < SPEC_NEW else None
+        # equal to plain greedy up to its first choice that differs, where
+        # plain greedy's top-2 gap must be under the bf16 bound
+        check(n_tok == SPEC_NEW and (gap is None or gap < bound),
+              f"(j4) {name}: {n_tok} tokens, first differs from plain greedy at {diff}, where "
+              f"plain greedy's top-2 gap {gap} is not under the bf16 bound {bound:.4g}")
+        spec[name] = dict(ms_per_token=secs * 1e3 / n_tok, chunks=chunks,
+                          tokens_per_chunk=n_tok / chunks, first_difference=diff,
+                          plain_gap_there=gap)
+        say(f"(j4) {name} greedy, batch 1, {SPEC_NEW} tokens on {card}: "
+            f"{spec[name]['ms_per_token']:.3f} ms/token; {chunks} target forwards, "
+            f"{spec[name]['tokens_per_chunk']:.3f} tokens each; equal to plain greedy up to "
+            f"token {diff}" + (f" (plain greedy's top-2 gap there {gap:.4g}, bound {bound:.4g})"
+                               if gap is not None else ""))
+    check(spec["self_draft"]["chunks"] <= -(-(SPEC_NEW - 1) // (SPEC_GAMMA + 1)) + 1,
+          f"(j4) the self draft took {spec['self_draft']['chunks']} chunks: not full acceptance")
+    results["speculative"] = spec
+    say(f"(j4) speculative phase {time.perf_counter() - t_sub:.1f} s")
+
+    # (j1)-(j3) on the int8 LM
+    t0 = time.perf_counter()
+    bj.enable_int8_decode()
+    torch.cuda.synchronize()
+    q8 = bj.lm_decode
+    check(isinstance(q8, GPTJInt8) and not q8.chunked_forward
+          and not hasattr(q8, "beam_prefix_cache"), "(j) the int8 LM is not GPTJInt8")
+    int8_gb = sum(b.numel() * b.element_size() for b in q8.buffers()) / 1e9
+    say(f"(j) enable_int8_decode: {time.perf_counter() - t0:.1f} s; int8 LM {int8_gb:.2f} GB of "
+        f"buffers + bf16 wte {q8.wte.numel() * 2 / 1e9:.2f} GB")
+    decode_phases("int8")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # (j5) the CLIs on a GPT-J checkpoint at full width, 2 layers
+    t_sub = time.perf_counter()
+    small = copy.copy(bj.model)
+    small._modules = dict(bj.model._modules)
+    small.lm = cut
+    small.mapper = copy.copy(bj.model.mapper)
+    small.mapper._modules = dict(bj.model.mapper._modules)
+    small.mapper.layers = torch.nn.ModuleList(list(bj.model.mapper.layers)[:1])
+    small_cap = dataclasses.replace(cap_cfg, mapper=dataclasses.replace(cap_cfg.mapper,
+                                                                          num_layers=1))
+    small.cfg, small.lm_cfg = small_cap, cut.cfg
+    ckpt = work / "gptj_ckpt"
+    save_checkpoint(str(ckpt), small, small_cap, cut.cfg)
+    npz_gb = (ckpt / "consolidated.npz").stat().st_size / 1e9
+    model, l_cap, l_lm, _ = load_captioner(str(ckpt), device="cuda")
+    want = small.state_dict()
+    for name, p in model.state_dict().items():
+        check(p.is_cuda and p.dtype == want[name].dtype and torch.equal(p, want[name]),
+              f"(j5) the GPT-J checkpoint's {name} differs from what was written")
+    check(l_cap == small_cap and l_lm == cut.cfg and isinstance(model.lm, GPTJ),
+          "(j5) the GPT-J checkpoint's configs differ")
+    write_read_s = time.perf_counter() - t_sub
+    del model, want, small, bj, lm, cut, q8, pool, prompt, pixels, img, t_prompt, d_prompt
+    torch.cuda.empty_cache()
+    say(f"(j5) GPT-J checkpoint ({npz_gb:.2f} GB .npz, full width, {GPTJ_CUT} layers, 1-layer "
+        f"mapper) written and read back bit for bit in {write_read_s:.1f} s")
+    common = ["--checkpoint_path", str(ckpt), "--tokenizer_vocab_dir", str(work / "vocab"),
+              "--device", "cuda"]
+    clip = ["--clip_model", "ViT-B/32", "--clip_checkpoint", str(work / "clip.pt"),
+            "--clip_merges", str(work / "clip_merges.txt")]
+    cli_s = {}
+    for int8 in ("", "--int8_decode"):
+        tag = "int8 " if int8 else ""
+        extra8 = [int8] if int8 else []
+        for name, extra, n_img, want_k2 in (
+                ("beam", ["--total_samples", "8"], 8, 0),
+                ("no_beam", ["--no_beam", "--total_samples", "2"], 2, 75 * 2),
+                ("speculative", ["--speculative_draft_checkpoint", str(work / "ckpt"),
+                                 "--total_samples", "1"], 1, 0)):
+            before = counters()
+            t0 = time.perf_counter()
+            with open(work / f"gptj_{name}{int8}.txt", "w") as log, \
+                    contextlib.redirect_stdout(log):
+                data = infer_cli.main(common + clip + extra + extra8 + [
+                    "--folder_path", str(work / "images"),
+                    "--out_filename_prefix", str(work / f"gptj_{name}{int8}")])
+            cli_s[f"{tag}infer_{name}"] = time.perf_counter() - t0
+            after = counters()
+            check(len(data) == n_img and all(len(e["generated_captions"]) == 1 and all(
+                math.isfinite(v) for v in e["scores"].values()) for e in data.values()),
+                  f"(j5) {tag}cli.infer {name}: not one caption and finite scores per image")
+            k2 = after["fused_filter_sample"] - before["fused_filter_sample"]
+            check(k2 == want_k2 and after["fused_attention"] > before["fused_attention"],
+                  f"(j5) {tag}cli.infer {name}: K2 rose by {k2}, want {want_k2}, or K1 did not run")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = serve_cli.main(common + extra8 + [
+                "--prefixes_npy", str(work / "int8_feats.npy"),
+                "--out_jsonl", str(work / f"gptj_serve{int8}.jsonl"), "--slots", "16",
+                "--max_new_tokens", "24"])
+        cli_s[f"{tag}serve"] = time.perf_counter() - t0
+        lines = [json.loads(x) for x in
+                 (work / f"gptj_serve{int8}.jsonl").read_text().splitlines()]
+        check(n == 64 and len(lines) == 64 and all(0 < x["tokens"] <= 24 for x in lines),
+              f"(j5) {tag}cli.serve: wrong JSONL")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            eval_cli.main(common + clip + extra8 + [
+                "--valid_json_path", str(work / "coco" / "captions.json"),
+                "--image_folder_path", str(work / "coco" / "images"),
+                "--max_samples", str(EVAL_CHUNK), "--eval_batch_size", str(EVAL_CHUNK)])
+        cli_s[f"{tag}evaluate"] = time.perf_counter() - t0
+        text = printed.getvalue()
+        scores = json.loads(text[text.index("{"):])
+        check(math.isfinite(scores["validation_loss"]) and math.isfinite(scores["clip_score"])
+              and sorted(scores["sampler_scores"]) == ["clip_guided", "nobeam"],
+              f"(j5) {tag}cli.evaluate: malformed scores")
+    launches = counters()
+    say(f"(j5) the CLIs on the GPT-J checkpoint, seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in cli_s.items())
+        + f"; well-formed outputs ({time.perf_counter() - t_sub:.1f} s)")
+    say(f"(j) peak device memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
+    say(f"GPT-J phase (j): {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(build_s=build_s, cut=cut_check, decode=results, cli_s=cli_s,
+                          peak_gb=peak_gb, npz_gb=npz_gb, sampler_v50400={
+                              name: dict(k234[name], cluster=clusters) for name in k234})
 
 
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
@@ -2465,6 +2936,13 @@ def profile_call(torch, label: str, run, wall_ms: float) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="drive the port's paths on one CUDA card")
+    ap.add_argument("--xl_layers", type=int, default=XL_LAYERS, choices=range(1, 49),
+                    metavar="N", help=f"GPT2-XL's depth in phase (i), of its 48 layers "
+                    f"(default {XL_LAYERS})")
+    args = ap.parse_args()
     if not (ROOT / "clipcap_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no clipcap_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
@@ -2523,8 +3001,11 @@ def main() -> int:
         infer_launches, infer_rates, handles = infer_path(torch, counters, bundle, card, work)
         eval_launches, eval_rates = evaluate_path(torch, counters, card, work, handles,
                                                   rates.pop("c_profile"))
-        int8_launches, int8_rates = int8_path(torch, counters, card, work, handles, bundle)
+        int8_launches, int8_rates = int8_path(torch, counters, card, work, handles, bundle,
+                                                args.xl_layers)
         del handles
+        gptj_launches, gptj_rates = gptj_path(torch, counters, FS, S, card, work, bundle)
+        torch.cuda.empty_cache()
         train_launches, train_rates = train_path(torch, counters, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2533,16 +3014,19 @@ def main() -> int:
                                  "infer": infer_launches["fused_attention"],
                                  "evaluate": eval_launches["fused_attention"],
                                  "int8": int8_launches["fused_attention"],
+                                 "gptj": gptj_launches["fused_attention"],
                                  "train": train_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
                                      "infer": infer_launches["fused_filter_sample"],
                                      "evaluate": eval_launches["fused_filter_sample"],
                                      "int8": int8_launches["fused_filter_sample"],
+                                     "gptj": gptj_launches["fused_filter_sample"],
                                      "train": train_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"],
-                                   "int8": int8_launches["fused_step_sample"]},
+                                   "int8": int8_launches["fused_step_sample"],
+                                   "gptj": gptj_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
     for name, by_path in paths.items():
         if name != "fused_filter":
@@ -2558,6 +3042,10 @@ def main() -> int:
                                      k234["fused_step_sample"]),
                "fused_filter": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:447",
                                 k234["fused_filter"])}
+    # the sampler kernels also at GPT-J's vocabulary: [72, 50400] and the sweep of rows
+    v50400 = gptj_rates.pop("sampler_v50400")
+    for name in ("fused_filter_sample", "fused_step_sample", "fused_filter"):
+        sources[name][2]["at_vocab_50400"] = v50400[name]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(paths[name].values()), launches_by_path=paths[name],
                     on_path=name != "fused_filter", **nums)
@@ -2568,6 +3056,7 @@ def main() -> int:
     say(f"infer on {card}: " + json.dumps(infer_rates))
     say(f"evaluate on {card}: " + json.dumps(eval_rates))
     say(f"int8 on {card}: " + json.dumps(int8_rates))
+    say(f"gptj on {card}: " + json.dumps(gptj_rates))
     say(f"train on {card}: " + json.dumps(train_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)

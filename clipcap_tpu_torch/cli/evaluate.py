@@ -8,12 +8,13 @@ in chunks of --eval_batch_size, and print the JSON of scores: the caption
 metrics per sampler, the validation CE loss and the mean CLIP score.
 
     python -m clipcap_tpu_torch.cli.evaluate --checkpoint_path CKPT \\
-        --tokenizer_vocab_dir GPT2_VOCAB --clip_checkpoint CLIP.pt \\
+        --tokenizer_vocab_dir VOCAB --clip_checkpoint CLIP.pt \\
         --clip_merges bpe_simple_vocab_16e6.txt.gz \\
         --valid_json_path captions_val2014.json --image_folder_path val2014
 
 CKPT is a directory of clipcap_config.json and consolidated.npz
-(train/checkpoints.py), f32 or bf16. Everything runs on the card unless
+(train/checkpoints.py), f32 or bf16, with a GPT-2 or a GPT-J LM; VOCAB
+holds its LM's BPE files. Everything runs on the card unless
 `--device cpu`.
 """
 
@@ -94,7 +95,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_samples", type=int, default=10)
     p.add_argument("--manual_seed", type=int, default=42)
     p.add_argument("--int8_decode", action="store_true",
-                   help="int8 weight-streaming decode for the samplers (gpt2; see "
+                   help="int8 weight-streaming decode for the samplers (gpt2/gptj; see "
                         "models/bundle.enable_int8_decode)")
     p.add_argument("--eval_batch_size", type=int, default=8,
                    help="images per validator chunk; samplers with a batched path run once "

@@ -8,11 +8,14 @@ against the original text (BLEU, METEOR, ROUGE-L, CIDEr, SPICE) and write
 `{prefix}_shutterstock.json`.
 
     python -m clipcap_tpu_torch.cli.infer --checkpoint_path CKPT \\
-        --tokenizer_vocab_dir GPT2_VOCAB --folder_path IMAGES \\
+        --tokenizer_vocab_dir VOCAB --folder_path IMAGES \\
         --clip_checkpoint CLIP.pt --clip_merges bpe_simple_vocab_16e6.txt.gz
 
 CKPT is a directory of clipcap_config.json and consolidated.npz
-(train/checkpoints.py). `folder_demo_pixels` is the part below the file
+(train/checkpoints.py), with a GPT-2 or a GPT-J LM. With
+`--speculative_draft_checkpoint DRAFT` each image is captioned by
+speculative greedy decode, DRAFT's captioner proposing and CKPT's
+verifying (beam search off). `folder_demo_pixels` is the part below the file
 reading (pixels in, captions and scores out), callable without PIL. All of
 it runs on the bundle's device, the card unless `--device cpu`.
 """
@@ -43,9 +46,39 @@ def _prompt(bundle, prefix_embed: torch.Tensor, text_prefix: Optional[str]) -> t
     return torch.cat([prefix_embed, bundle.embed_text(toks).to(prefix_embed.dtype)], dim=1)
 
 
+def _speculative_captions(bundle, draft_bundle, pixels, visual_feats, prompt,
+                          text_prefix: Optional[str], **generation_kwargs) -> List[str]:
+    """Speculative greedy decode (decode/speculative.py) of one image: the
+    draft bundle's own encoder, or the target's features where the draft has
+    none and its mapper takes their width, then the draft's own mapper and
+    text prefix; "." stops."""
+    from ..decode.engine import trim_and_decode
+    from ..decode.speculative import speculative_greedy
+
+    if draft_bundle.model.visual is not None:
+        d_feats = draft_bundle.encode_image(pixels)
+    else:
+        # reusing the target's features is only meaningful when the draft's
+        # mapper was trained on the same encoder's feature space
+        d_dim = draft_bundle.cap_cfg.mapper.dim_clip
+        if visual_feats.shape[-1] != d_dim:
+            raise ValueError(
+                f"draft bundle has no visual encoder and its mapper expects dim_clip={d_dim}, "
+                f"but the target's visual features are {visual_feats.shape[-1]}-wide: the draft "
+                "needs its own encoder or a mapper trained on the target's feature space")
+        d_feats = visual_feats
+    d_prompt = _prompt(draft_bundle, draft_bundle.project_prefix(d_feats), text_prefix)
+    out = speculative_greedy(bundle.lm_decode, draft_bundle.lm_decode, prompt, d_prompt,
+                             max_new_tokens=generation_kwargs.get("entry_length", 67),
+                             gamma=generation_kwargs.get("gamma", 4),
+                             eos_token_id=bundle.tokenizer.encode_text(".")[0],
+                             device=bundle.device)
+    return trim_and_decode(out, bundle.tokenizer, strip_special=True)
+
+
 def _captions_from_pixels(bundle, clip_scoring, image_tensor, number_to_generate: int,
                           text_prefix: Optional[str], use_beam_search: bool,
-                          **generation_kwargs):
+                          draft_bundle=None, **generation_kwargs):
     """demo_generate_captions after the preprocessing: one image's
     [3, S, S] pixels -> (captions, the scorer's image features)."""
     from ..decode.beam import beam_search, best_beam_text
@@ -55,7 +88,10 @@ def _captions_from_pixels(bundle, clip_scoring, image_tensor, number_to_generate
     # the captioner's own visual encoder makes the prefix features
     visual_feats = bundle.encode_image(pixels)
     prompt = _prompt(bundle, bundle.project_prefix(visual_feats), text_prefix)
-    if use_beam_search:
+    if draft_bundle is not None and not use_beam_search:
+        captions = _speculative_captions(bundle, draft_bundle, pixels, visual_feats, prompt,
+                                         text_prefix, **generation_kwargs)
+    elif use_beam_search:
         out = beam_search(bundle.lm_decode, prompt,
                           beam_size=generation_kwargs.get("beam_size", 5),
                           max_new_tokens=generation_kwargs.get("entry_length", 67),
@@ -77,17 +113,16 @@ def demo_generate_captions(bundle, clip_scoring, image, number_to_generate: int 
                            text_prefix: Optional[str] = None, use_beam_search: bool = False,
                            draft_bundle=None, **generation_kwargs):
     """Reference inference.py:295-331: preprocess -> encode -> project ->
-    beam or no-beam. Returns (captions, the scorer's image features)."""
-    if draft_bundle is not None:
-        raise _not_ported("speculative decoding (a draft bundle)", 10)
+    beam, no-beam, or (with a draft bundle and no beam) speculative greedy.
+    Returns (captions, the scorer's image features)."""
     return _captions_from_pixels(bundle, clip_scoring, clip_scoring.preprocess_image(image),
                                  number_to_generate, text_prefix, use_beam_search,
-                                 **generation_kwargs)
+                                 draft_bundle=draft_bundle, **generation_kwargs)
 
 
 def caption_pixels(bundle, clip_scoring, pixels, number_to_generate: int = 1,
                    text_prefix: Optional[str] = None, use_beam_search: bool = True,
-                   **generation_kwargs) -> List[List[str]]:
+                   draft_bundle=None, **generation_kwargs) -> List[List[str]]:
     """Captions for each of N preprocessed images ([N, 3, S, S]).
 
     Beam: images x beams in one beam_search_batched call per chunk of
@@ -95,7 +130,7 @@ def caption_pixels(bundle, clip_scoring, pixels, number_to_generate: int = 1,
     call and changes no token); each image gets its best beam, as the JAX
     folder demo gives it (no text prefix prepended). No-beam: image by
     image through demo_generate_captions' path, the scorer's encoder
-    included."""
+    included; with a draft bundle, by speculative greedy decode."""
     out: List[List[str]] = []
     if use_beam_search:
         from ..decode.beam import beam_search_batched, best_beam_texts
@@ -113,7 +148,7 @@ def caption_pixels(bundle, clip_scoring, pixels, number_to_generate: int = 1,
     for image_tensor in pixels:
         captions, _ = _captions_from_pixels(bundle, clip_scoring, image_tensor,
                                             number_to_generate, text_prefix, False,
-                                            **generation_kwargs)
+                                            draft_bundle=draft_bundle, **generation_kwargs)
         out.append(captions)
     return out
 
@@ -128,13 +163,11 @@ def folder_demo_pixels(bundle, clip_scoring, pixels, names: Sequence[str], metad
     `alt` text, written to `{out_filename_prefix}_shutterstock.json`."""
     from ..eval.scoring import generate_scores_full
 
-    if draft_bundle is not None:
-        raise _not_ported("speculative decoding (a draft bundle)", 10)
     metadata = list(metadata) if metadata is not None else [{} for _ in names]
     all_captions = caption_pixels(bundle, clip_scoring, pixels,
                                   number_to_generate=number_to_generate,
                                   text_prefix=text_prefix, use_beam_search=use_beam_search,
-                                  **generation_kwargs)
+                                  draft_bundle=draft_bundle, **generation_kwargs)
     sample_data = {}
     scoring_gts, scoring_res, image_id_to_url = {}, {}, {}
     for image_id, (name, meta, captions) in enumerate(zip(names, metadata, all_captions)):
@@ -201,9 +234,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help="model-axis size for tensor-parallel decode (not ported: must be 1)")
     p.add_argument("--speculative_draft_checkpoint", default=None,
-                   help="draft captioner for speculative decoding (not ported)")
+                   help="checkpoint of a small captioner (its own mapper and LM, the same "
+                        "tokenizer) used as the speculative-decode draft; implies no-beam "
+                        "greedy decoding")
+    p.add_argument("--speculative_gamma", type=int, default=4)
     p.add_argument("--int8_decode", action="store_true",
-                   help="int8 weight-streaming decode (gpt2): int8 weights and KV cache; "
+                   help="int8 weight-streaming decode (gpt2/gptj): int8 weights and KV cache; "
                         "tokens can differ from the float path at quantization boundaries")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
@@ -214,8 +250,6 @@ def main(argv=None):
     # options of the JAX CLI that the port does not have yet: refuse, never ignore
     if args.tensor_parallel > 1:
         raise _not_ported("--tensor_parallel > 1", 12)
-    if args.speculative_draft_checkpoint:
-        raise _not_ported("--speculative_draft_checkpoint", 10)
 
     from ..eval.clip_scoring import ClipScoring
     from .loading import load_captioner_bundle, load_clip_ranker
@@ -225,6 +259,17 @@ def main(argv=None):
     if args.int8_decode:
         bundle.enable_int8_decode()
         print("int8 weight-streaming decode enabled")
+    draft_bundle = None
+    if args.speculative_draft_checkpoint:
+        if args.int8_decode:
+            # the int8 modules decode one position per row, so verification
+            # runs one weight-streaming step per chunk token
+            print("warning: --int8_decode makes speculative verification fall back to "
+                  "per-token forwards; expect no speedup over plain int8 greedy")
+        draft_bundle = load_captioner_bundle(args.speculative_draft_checkpoint,
+                                             args.tokenizer_vocab_dir, device=args.device)
+        print(f"speculative decoding with draft checkpoint {args.speculative_draft_checkpoint} "
+              f"(gamma={args.speculative_gamma})")
     ranker = load_clip_ranker(args.clip_model, args.clip_checkpoint, args.clip_merges,
                               device=args.device)
     scoring = ClipScoring(ranker.visual, ranker.text, ranker.tokenizer)
@@ -232,7 +277,9 @@ def main(argv=None):
                        out_filename_prefix=args.out_filename_prefix,
                        total_samples=args.total_samples,
                        number_to_generate=args.number_to_generate,
-                       text_prefix=args.text_prefix, use_beam_search=not args.no_beam)
+                       text_prefix=args.text_prefix,
+                       use_beam_search=not args.no_beam and draft_bundle is None,
+                       draft_bundle=draft_bundle, gamma=args.speculative_gamma)
 
 
 if __name__ == "__main__":

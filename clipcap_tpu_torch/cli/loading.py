@@ -108,7 +108,7 @@ def load_captioner(checkpoint_path: str, device: str = "cuda"):
         else:
             vit_cfg = ViTConfig.clip_variant(cap_cfg.visual_encoder_variant)
     model = Captioner(cap_cfg, lm_cfg, vit_cfg=vit_cfg, device=device)
-    convert.load(model, convert.captioner_state_dict(params))
+    convert.load(model, convert.captioner_state_dict(params, cap_cfg.lm_type))
     for sub in (model.mapper, model.lm, model.visual):
         if sub is not None and len({p.dtype for p in sub.parameters()}) > 1:
             sub.float()

@@ -282,14 +282,11 @@ def train(args) -> dict:
 
 def _load_lm(model, args) -> None:
     from .. import convert
-    from ..lm.registry import normalize_lm_type
-    from ..tools import import_weights as W
+    from ..lm.registry import family
     from .loading import load_state_dict
 
-    if normalize_lm_type(args.language_model_type) != "gpt2":
-        raise _not_ported(f"--lm_checkpoint for {args.language_model_type}", 10)
-    convert.load(model.lm, W.gpt2_from_state_dict(load_state_dict(args.lm_checkpoint),
-                                                  model.lm.cfg))
+    from_hf = family(args.language_model_type).from_hf
+    convert.load(model.lm, from_hf(load_state_dict(args.lm_checkpoint), model.lm.cfg))
     print(f"loaded LM weights from {args.lm_checkpoint}")
 
 

@@ -21,9 +21,10 @@ int8 trees: a quantized linear leaf of the JAX package, {"q": int8
 port's Int8Linear buffers `q` [out, in] and `s`, and back. GPT-2's int8
 `lm_head` ([D, V]) is padded to the port's multiple-of-8 channels with
 q = 0 and s = 1e-12, what the port's own quantization gives zero rows,
-and sliced back to the vocabulary on the way out. So the converters read
-and write what `gpt2.quantize_params` and `vit.quantize_params` make in
-either package.
+and sliced back to the vocabulary on the way out. GPT-J's int8 lm_head
+(vocabulary 50400) needs no padding. So the converters read and write what
+`gpt2.quantize_params`, `gptj.quantize_params` and `vit.quantize_params`
+make in either package.
 """
 
 from __future__ import annotations
@@ -152,6 +153,31 @@ def gpt2_state_dict(params: dict) -> StateDict:
     return sd
 
 
+def gptj_state_dict(params: dict) -> StateDict:
+    """clipcap_tpu.models.gptj params (float, or gptj.quantize_params'
+    int8 tree) -> clipcap_tpu_torch.models.gptj.GPTJ (or GPTJInt8)."""
+    sd = {"wte": np.asarray(params["wte"])}
+    sd.update(_ln("ln_f", params["ln_f"]))
+    sd.update(_lin("lm_head", params["lm_head"]["w"], params["lm_head"]["b"]))
+    blocks = params["blocks"]
+    attn, mlp = blocks["attn"], blocks["mlp"]
+    for i in range(np.asarray(blocks["ln1"]["g"]).shape[0]):
+        p = f"blocks.{i}"
+        sd.update(_ln(f"{p}.ln1", blocks["ln1"], i))
+        for name in ("wq", "wk", "wv", "wo"):
+            sd.update(_lin(f"{p}.{name}", attn[name], layer=i))
+        sd.update(_lin(f"{p}.w_in", mlp["w_in"], mlp["b_in"], i))
+        sd.update(_lin(f"{p}.w_out", mlp["w_out"], mlp["b_out"], i))
+    return sd
+
+
+def lm_state_dict(params: dict, lm_type: str = "gpt2") -> StateDict:
+    """The LM converter of `lm_type` (gpt2 or gptj)."""
+    from .lm.registry import family
+
+    return family(lm_type).state_dict(params)
+
+
 def clip_text_state_dict(params: dict) -> StateDict:
     """clipcap_tpu.models.clip_text params -> clipcap_tpu_torch.models.clip_text.CLIPText."""
     sd = {"token_embedding": np.asarray(params["token_embedding"]),
@@ -170,11 +196,11 @@ def clip_text_state_dict(params: dict) -> StateDict:
     return sd
 
 
-def captioner_state_dict(params: dict) -> StateDict:
+def captioner_state_dict(params: dict, lm_type: str = "gpt2") -> StateDict:
     """clipcap_tpu.models.captioner params {"mapper", "lm", ["visual"]} ->
-    clipcap_tpu_torch.models.captioner.Captioner (GPT-2 LM)."""
+    clipcap_tpu_torch.models.captioner.Captioner with a GPT-2 or GPT-J LM."""
     sd = {f"mapper.{k}": v for k, v in mapper_state_dict(params["mapper"]).items()}
-    sd.update({f"lm.{k}": v for k, v in gpt2_state_dict(params["lm"]).items()})
+    sd.update({f"lm.{k}": v for k, v in lm_state_dict(params["lm"], lm_type).items()})
     if "visual" in params:
         sd.update({f"visual.{k}": v for k, v in vit_state_dict(params["visual"]).items()})
     return sd
@@ -275,17 +301,38 @@ def gpt2_params(sd: StateDict, layers: int) -> dict:
     return params
 
 
+def gptj_params(sd: StateDict, layers: int) -> dict:
+    """Inverse of gptj_state_dict (float or int8)."""
+    blk = "blocks.{}."
+    return {"wte": sd["wte"], "ln_f": _flat_ln(sd, "ln_f"),
+            "lm_head": {"w": _flat_w(sd, "lm_head"), "b": sd["lm_head.bias"]},
+            "blocks": {"ln1": _unln(sd, blk + "ln1", layers),
+                       "attn": {name: _unw(sd, blk + name, layers)
+                                for name in ("wq", "wk", "wv", "wo")},
+                       "mlp": {"w_in": _unw(sd, blk + "w_in", layers),
+                               "b_in": _unb(sd, blk + "w_in", layers),
+                               "w_out": _unw(sd, blk + "w_out", layers),
+                               "b_out": _unb(sd, blk + "w_out", layers)}}}
+
+
+def lm_params(sd: StateDict, layers: int, lm_type: str = "gpt2") -> dict:
+    """Inverse of lm_state_dict."""
+    from .lm.registry import family
+
+    return family(lm_type).params(sd, layers)
+
+
 def captioner_params(model: nn.Module) -> dict:
-    """A port Captioner (GPT-2 LM) -> the JAX package's captioner params
-    {"mapper", "lm", ["visual"]}, numpy on the host (bf16 as `|V2`
-    records): the inverse of captioner_state_dict."""
+    """A port Captioner (GPT-2 or GPT-J LM, by its cfg.lm_type) -> the JAX
+    package's captioner params {"mapper", "lm", ["visual"]}, numpy on the
+    host (bf16 as `|V2` records): the inverse of captioner_state_dict."""
     sd = {k: to_numpy(v) for k, v in model.state_dict().items()}
 
     def sub(prefix):
         return {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
 
     params = {"mapper": mapper_params(sub("mapper"), len(model.mapper.layers)),
-              "lm": gpt2_params(sub("lm"), len(model.lm.blocks))}
+              "lm": lm_params(sub("lm"), len(model.lm.blocks), model.cfg.lm_type)}
     if model.visual is not None:
         params["visual"] = vit_params(sub("visual"), len(model.visual.blocks))
     return params
@@ -306,11 +353,23 @@ def load(module: nn.Module, state: StateDict) -> nn.Module:
     params = dict(module.named_parameters())
     with torch.no_grad():
         for name, value in state.items():
-            t = to_torch(value)
+            t = _to_device(value, own[name].device)
             if tuple(t.shape) != tuple(own[name].shape):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(own[name].shape)}")
             if name in params and t.is_floating_point() and t.dtype != own[name].dtype:
-                params[name].data = t.to(own[name].device)
+                params[name].data = t
             else:
                 own[name].copy_(t)
     return module
+
+
+def _to_device(value, device) -> torch.Tensor:
+    """to_torch(value), contiguous on `device`. A transposed view of a
+    contiguous array (the [in, out] -> [out, in] weights) crosses to the
+    device as that array and is transposed there: a transposing copy on
+    the host is several times slower than a plain one, and at GPT-J's
+    width it took most of a checkpoint's load."""
+    arr = np.asarray(value)
+    if arr.ndim == 2 and not arr.flags.c_contiguous and arr.T.flags.c_contiguous:
+        return to_torch(arr.T).to(device).t().contiguous()
+    return to_torch(arr).to(device)

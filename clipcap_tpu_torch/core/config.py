@@ -1,7 +1,7 @@
 """Configuration dataclasses of the captioning main path.
 
-The port's own copies of `MapperConfig`, `GPT2Config`, `ViTConfig`,
-`CLIPTextConfig`, `CaptionerConfig` and `TrainConfig` from
+The port's own copies of `MapperConfig`, `GPT2Config`, `GPTJConfig`,
+`ViTConfig`, `CLIPTextConfig`, `CaptionerConfig` and `TrainConfig` from
 clipcap_tpu/core/config.py, with the same fields,
 defaults and JSON round trip (a test holds the two in step). The port keeps
 its own copies because the JAX package's `core/__init__.py` imports JAX.
@@ -67,6 +67,25 @@ class GPT2Config(_JsonMixin):
         if name not in table:
             raise ValueError(f"unknown GPT-2 variant {name!r}")
         return cls(**table[name])
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTJConfig(_JsonMixin):
+    """GPT-J family (rotary embeddings, parallel attention+MLP residual)."""
+
+    vocab_size: int = 50400
+    n_positions: int = 2048
+    n_embd: int = 4096
+    n_layer: int = 28
+    n_head: int = 16
+    rotary_dim: int = 64
+    layer_norm_epsilon: float = 1e-5
+
+    @classmethod
+    def variant(cls, name: str) -> "GPTJConfig":
+        if name in ("EleutherAI/gpt-j-6B", "gpt-j-6B", "gptj"):
+            return cls()
+        raise ValueError(f"unknown GPT-J variant {name!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -63,7 +63,7 @@ def _replicate_rows(cache, k: int):
     children of row r land at rows [r*k, (r+1)*k)."""
     if hasattr(cache, "cross_k") or hasattr(cache, "enc_hidden"):
         raise NotImplementedError(
-            "clip-guided decode supports self-attention cache LMs (gpt2); cross-attention "
+            "clip-guided decode supports self-attention cache LMs (gpt2/gptj); cross-attention "
             "caches are per-image and do not follow the tree's row replication")
     return _expand_beams(cache, k)
 

@@ -38,7 +38,7 @@ so the launch stream never stalls inside a chunk.
 Left behind as TPU workarounds: layout pinning, the jitted row gather and
 buffer donation. The sentence-length penalty is rejected (it needs the
 batch-global step counter). Supported LMs: any module with
-`decode_step_ring` and `scatter_refill` (GPT-2 in this port).
+`decode_step_ring` and `scatter_refill` (GPT-2 and GPT-J, float and int8).
 """
 
 from __future__ import annotations

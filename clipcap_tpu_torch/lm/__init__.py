@@ -1,1 +1,1 @@
-"""Language-model registry (gpt2 in this slice)."""
+"""Language-model registry (gpt2 and gptj)."""

@@ -1,4 +1,4 @@
-"""Language-model surface (port of clipcap_tpu/lm/registry.py, gpt2 only).
+"""Language-model surface (port of clipcap_tpu/lm/registry.py: gpt2, gptj).
 
 An LM of the port is an nn.Module with the protocol the decode engine drives:
 
@@ -8,13 +8,33 @@ An LM of the port is an nn.Module with the protocol the decode engine drives:
     prefill(inputs_embeds, cache)        -> (logits [B, 1, V], cache)
     decode_step(token_embed, cache)      -> (logits [B, V], cache)
 
-Name aliases follow the reference CLIs (train.py:191-198). GPT-J and T5/T0
-come with the "Other LM families" slice of ROADMAP.md.
+and the class attribute `chunked_forward`: True where
+`forward_cached(embeds, cache)` runs a multi-token continuation of a
+cache (speculative verification's chunk), False where the LM decodes one
+position per row and the chunk takes one decode_step per token (the int8
+modules, as JAX's int8 adapters have no `_forward_cached`).
+
+Name aliases follow the reference CLIs (train.py:191-198). T5/T0 comes
+with its own slice (ROADMAP.md item 13).
 """
 
 from __future__ import annotations
 
-from ..core.config import GPT2Config
+from typing import Callable, NamedTuple
+
+from ..core.config import GPT2Config, GPTJConfig
+
+
+class LMFamily(NamedTuple):
+    """What the port carries for one LM family, in one place: its LM class
+    and config, its int8 quantizer, its converters between the JAX tree
+    and the port's state dict (both ways), and its HF importer."""
+    lm: type
+    config: type
+    quantize_params: Callable
+    state_dict: Callable  # JAX params -> the port's state dict
+    params: Callable  # (state dict, layers) -> JAX params
+    from_hf: Callable  # (HF state dict, config) -> the port's state dict
 
 
 def normalize_lm_type(lm_type: str) -> str:
@@ -30,24 +50,42 @@ def normalize_lm_type(lm_type: str) -> str:
     )
 
 
-def _not_ported(t: str):
-    return NotImplementedError(
-        f"LM family {t!r} is not ported yet: it comes with the 'Other LM families' "
-        "slice of ROADMAP.md; this slice carries gpt2 only")
+def _gpt2() -> LMFamily:
+    from ..convert import gpt2_params, gpt2_state_dict
+    from ..models import gpt2
+    from ..tools.import_weights import gpt2_from_state_dict
+
+    return LMFamily(gpt2.GPT2, GPT2Config, gpt2.quantize_params, gpt2_state_dict,
+                    gpt2_params, gpt2_from_state_dict)
+
+
+def _gptj() -> LMFamily:
+    from ..convert import gptj_params, gptj_state_dict
+    from ..models import gptj
+    from ..tools.import_weights import gptj_from_state_dict
+
+    return LMFamily(gptj.GPTJ, GPTJConfig, gptj.quantize_params, gptj_state_dict,
+                    gptj_params, gptj_from_state_dict)
+
+
+# the modules load when a family is first asked for (convert imports this one)
+_FAMILIES = {"gpt2": _gpt2, "gptj": _gptj}
+
+
+def family(lm_type: str) -> LMFamily:
+    """The ported family of `lm_type`; T5/T0 raises, naming its ROADMAP item."""
+    t = normalize_lm_type(lm_type)
+    if t not in _FAMILIES:
+        raise NotImplementedError(
+            f"LM family {t!r} is not ported yet: T5/T0 comes with ROADMAP.md item 13; "
+            "the port carries gpt2 and gptj")
+    return _FAMILIES[t]()
 
 
 def get_lm(lm_type: str):
     """The LM class implementing the protocol above."""
-    t = normalize_lm_type(lm_type)
-    if t == "gpt2":
-        from ..models.gpt2 import GPT2
-
-        return GPT2
-    raise _not_ported(t)
+    return family(lm_type).lm
 
 
 def get_lm_config(lm_type: str, variant: str):
-    t = normalize_lm_type(lm_type)
-    if t == "gpt2":
-        return GPT2Config.variant(variant)
-    raise _not_ported(t)
+    return family(lm_type).config.variant(variant)

@@ -59,18 +59,13 @@ class CaptionerBundle:
         return self.model.lm
 
     def enable_int8_decode(self) -> "CaptionerBundle":
-        """Quantize the LM once for int8 decode (models/gpt2.quantize_params):
-        int8 weights with per-output-channel scales and an int8 KV cache.
-        Only `lm_decode` switches. Greedy tokens can differ from the float
-        path at quantization boundaries."""
-        from ..lm.registry import normalize_lm_type
-        from .gpt2 import quantize_params
+        """Quantize the LM once for int8 decode (models/gpt2.quantize_params
+        or models/gptj.quantize_params): int8 weights with per-output-channel
+        scales and an int8 KV cache. Only `lm_decode` switches. Greedy
+        tokens can differ from the float path at quantization boundaries."""
+        from ..lm.registry import family
 
-        t = normalize_lm_type(self.cap_cfg.lm_type)
-        if t != "gpt2":
-            raise NotImplementedError(f"int8 decode of {t!r} is not ported yet (ROADMAP.md "
-                                      "item 10: the GPT-J and T5 int8 modules)")
-        self._int8_lm = quantize_params(self.model.lm)
+        self._int8_lm = family(self.cap_cfg.lm_type).quantize_params(self.model.lm)
         return self
 
     @property
@@ -83,7 +78,8 @@ class CaptionerBundle:
         bundle's device. Drive it with `eng.serve(requests,
         prefix_pool=...)`, where the pool rows are project_prefix outputs.
         The activation dtype defaults to the decode LM's wte dtype (bf16
-        for the int8 LM)."""
+        for the int8 GPT-2; the float model's for the int8 GPT-J, which
+        keeps wte as JAX's quantize_params does)."""
         from ..decode.serving import ServingEngine
 
         kw.setdefault("dtype", self.lm_decode.wte.dtype)

@@ -44,6 +44,13 @@ def linear(fan_in: int, fan_out: int, *, bias: bool, gen: torch.Generator, devic
     return lin
 
 
+def gather_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens], each id clamped to [0, rows - 1] on the device, as
+    JAX's gather clamps an out-of-range index to the last row (a GPT-2
+    draft embeds a wider GPT-J target's ids in speculative decoding)."""
+    return table[tokens.long().clamp(0, table.shape[0] - 1)]
+
+
 def remat_call(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
     """module(*args) under activation checkpointing (jax.checkpoint of a
     scanned layer body): non-reentrant torch.utils.checkpoint, which keeps

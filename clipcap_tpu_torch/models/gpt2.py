@@ -37,7 +37,7 @@ from ..ops.layernorm import LayerNorm
 from ..ops.quant import (Int8Linear, absmax_scale, pad_channels, quantize_rows,
                          quantize_weight)
 from ..ops.ring import paste_rows, refill_positions, ring_layout
-from .common import linear, make_generator, normal, remat_call
+from .common import gather_rows, linear, make_generator, normal, remat_call
 
 
 class KVCache(NamedTuple):
@@ -80,6 +80,8 @@ class GPT2(nn.Module):
     """GPT-2 with the JAX package's init: N(0, 0.02) weights, zero biases,
     residual projections at 0.02/sqrt(2L)."""
 
+    chunked_forward = True  # forward_cached continues a cache by several positions
+
     def __init__(self, cfg: GPT2Config, *, device="cuda", dtype=torch.float32, seed: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -92,8 +94,9 @@ class GPT2(nn.Module):
     # --- the lm/registry protocol -------------------------------------------------
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """wte lookup: the reference's get_embedding_text (lms/GPT2.py:14)."""
-        return self.wte[tokens.long()]
+        """wte lookup: the reference's get_embedding_text (lms/GPT2.py:14),
+        out-of-range ids clamped as JAX's gather clamps them."""
+        return gather_rows(self.wte, tokens)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm and the tied lm_head."""
@@ -173,6 +176,13 @@ class GPT2(nn.Module):
         if cache.index != 0:
             raise ValueError("prefill needs a fresh cache (index 0)")
         return self._forward_cached(inputs_embeds, cache, fresh=True, full_logits=full_logits)
+
+    def forward_cached(self, inputs_embeds: torch.Tensor,
+                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+        """Continue the cache by T positions: logits [B, T, V] (JAX's
+        `_forward_cached` with full logits, which speculative verification
+        drives)."""
+        return self._forward_cached(inputs_embeds, cache, fresh=False, full_logits=True)
 
     def decode_step(self, token_embed: torch.Tensor,
                     cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
@@ -297,6 +307,11 @@ class GPT2Int8(nn.Module):
     Build it with `quantize_params(gpt2)`, or allocate it here and fill it
     with convert.load(GPT2Int8(cfg), convert.gpt2_state_dict(jax_int8_tree))."""
 
+    # one position per row (its _forward_cached takes t == 1 outside a fresh
+    # prefill): speculative verification steps token by token, as JAX's
+    # gpt2_int8 has no _forward_cached
+    chunked_forward = False
+
     def __init__(self, cfg: GPT2Config, *, device="cuda"):
         super().__init__()
         self.cfg = cfg
@@ -311,7 +326,7 @@ class GPT2Int8(nn.Module):
         self.requires_grad_(False)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.wte[tokens.long()]
+        return gather_rows(self.wte, tokens)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm and the int8 lm_head -> f32 logits over the vocabulary."""

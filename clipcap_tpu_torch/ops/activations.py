@@ -37,14 +37,23 @@ def _gelu_new_constants(dtype: torch.dtype):
     return k, c
 
 
-def gelu_new(x: torch.Tensor) -> torch.Tensor:
+def gelu_new(x: torch.Tensor, f32_product: bool = False) -> torch.Tensor:
     """GPT-2's tanh-approximated GELU (HF activation "gelu_new"), in JAX's
     order and with its constants, so that in bf16 each op rounds as the JAX
     package's does. x^3 is taken in f32 and rounded once, as XLA's power
-    is (the CPU's bf16 torch.pow rounds differently)."""
+    is (the CPU's bf16 torch.pow rounds differently).
+
+    f32_product: the final product (0.5 x) * (1 + tanh(...)) of its two
+    rounded factors, returned in f32 unrounded. That is what compiled JAX
+    quantizes where gelu_new feeds an int8 linear: XLA moves the int8
+    quantization's widening convert above the product, so its bf16
+    rounding drops out."""
     k, c = _gelu_new_constants(x.dtype)
     cube = torch.pow(x.float(), 3.0).to(x.dtype)
-    return 0.5 * x * (1.0 + torch.tanh(c * (x + k * cube)))
+    half, gate = 0.5 * x, 1.0 + torch.tanh(c * (x + k * cube))
+    if f32_product:
+        return half.float() * gate.float()
+    return half * gate
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""GPT-2 tokenizer wrapper with the reference's `encode_text` semantics
-(port of GPT2TokenizerWrapper, clipcap_tpu/tokenizers/api.py).
+"""GPT-2 and GPT-J tokenizer wrappers with the reference's `encode_text`
+semantics (port of GPT2TokenizerWrapper and GPTJTokenizerWrapper,
+clipcap_tpu/tokenizers/api.py).
 
 encode_text (reference lms/GPT2.py:28-44): a given max_token_length is
 extended by one per requested special token before truncation, then BOS is
 prepended / EOS appended, so a capped caption keeps its specials.
-bos == eos == the endoftext token. The GPT-J and T5 wrappers come with the
-other LM families.
+bos == eos == the endoftext token. GPT-J's wrapper truncates only unless
+asked for the specials. The T5 wrapper comes with its own slice.
 """
 
 from __future__ import annotations
@@ -64,14 +65,28 @@ class GPT2TokenizerWrapper:
         return self.bpe.vocab_size
 
 
+class GPTJTokenizerWrapper(GPT2TokenizerWrapper):
+    """GPT-J shares GPT-2's BPE; by default its encode_text truncates only
+    (no special tokens added), as JAX's does. Ids from 50257 up (GPT-J's
+    padding rows) decode to nothing, as the BPE decoder drops ids it does
+    not know.
+
+    Unlike JAX's wrapper, encode_text also takes add_bos/add_eos (GPT-2's
+    semantics): the COCO validator asks for them to score the validation
+    loss, and JAX's GPT-J wrapper refuses them, so JAX's cli.evaluate
+    raises TypeError on a GPT-J checkpoint (ROADMAP.md §3)."""
+
+
 def create_tokenizer(tokenizer_model_type: str, vocab_dir: str):
     """Type string -> tokenizer wrapper (reference create_dataset.py:242-255);
-    GPT-J and T5 come with the other LM families (ROADMAP.md item 10)."""
+    T5 comes with its own slice (ROADMAP.md item 13)."""
     t = tokenizer_model_type.lower()
     if t == "gpt2":
         return GPT2TokenizerWrapper.create(vocab_dir)
-    if t in ("gptj", "gpt-j", "t5", "t0"):
+    if t in ("gptj", "gpt-j"):
+        return GPTJTokenizerWrapper.create(vocab_dir)
+    if t in ("t5", "t0"):
         raise NotImplementedError(f"the {tokenizer_model_type!r} tokenizer is not ported yet "
-                                  "(ROADMAP.md item 10, other LM families)")
+                                  "(ROADMAP.md item 13, T5/T0)")
     raise ValueError(
         f"invalid tokenizer model type: {tokenizer_model_type!r} (expected gpt2/gpt-j/t0/t5)")

@@ -1,5 +1,5 @@
-"""Torch checkpoints -> the port's modules (port of the GPT-2, mapper and
-CLIP converters of clipcap_tpu/tools/import_weights.py).
+"""Torch checkpoints -> the port's modules (port of the GPT-2, GPT-J, mapper
+and CLIP converters of clipcap_tpu/tools/import_weights.py).
 
 The reference loads its models from torch checkpoints (HF `from_pretrained`
 at lms/GPT2.py:9, `clip.load` at train.py:206). Each converter here maps a
@@ -11,7 +11,7 @@ ready for `convert.load`: no JAX layout in between. Inputs are plain
 Layouts: torch nn.Linear stores [out, in], as the port's modules do, and is
 copied through; HF GPT-2's Conv1D stores [in, out] and is transposed; a
 patch Conv2d [D, C, P, P] becomes the per-patch linear [D, C*P*P]. The
-GPT-J, T5, BLIP and ResNet converters come with their ROADMAP.md items.
+T5, BLIP and ResNet converters come with their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -82,6 +82,27 @@ def gpt2_from_state_dict(sd: Mapping, cfg) -> StateDict:
                **_linear("c_proj", h + "attn.c_proj", sd, transpose=True),
                **_linear("c_fc", h + "mlp.c_fc", sd, transpose=True),
                **_linear("mlp_proj", h + "mlp.c_proj", sd, transpose=True)}
+        out |= _prefixed(f"blocks.{i}", blk)
+    return out
+
+
+def gptj_from_state_dict(sd: Mapping, cfg) -> StateDict:
+    """HF GPTJForCausalLM state dict (keys `transformer.*` and `lm_head.*`,
+    or a bare GPTJModel's beside `lm_head.*`) -> models.gptj.GPTJ. HF's
+    nn.Linear weights are [out, in] already; GPT-J's head is biased and
+    untied."""
+    p = "transformer."
+    if p + "wte.weight" not in sd and "wte.weight" in sd:
+        p = ""
+    out = _copy(sd, [("wte", p + "wte.weight")]) | _norm("ln_f", p + "ln_f", sd)
+    out |= _linear("lm_head", "lm_head", sd)
+    for i in range(cfg.n_layer):
+        h = f"{p}h.{i}."
+        blk = {**_norm("ln1", h + "ln_1", sd),
+               **_copy(sd, [(f"{dst}.weight", f"{h}attn.{src}.weight") for dst, src in
+                            (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                             ("wo", "out_proj"))]),
+               **_linear("w_in", h + "mlp.fc_in", sd), **_linear("w_out", h + "mlp.fc_out", sd)}
         out |= _prefixed(f"blocks.{i}", blk)
     return out
 

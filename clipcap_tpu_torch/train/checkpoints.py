@@ -165,7 +165,7 @@ def restore_checkpoint(path: str, template):
     if "step" not in flat:
         raise KeyError(f"{path} holds parameters only, no train state to resume from")
     params = _unflatten({k: v for k, v in flat.items() if k.startswith("params.")})["params"]
-    convert.load(model, convert.captioner_state_dict(params))
+    convert.load(model, convert.captioner_state_dict(params, model.cfg.lm_type))
 
     def tensor(key):
         return convert.to_torch(flat[key]).to(device)

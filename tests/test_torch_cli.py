@@ -191,12 +191,17 @@ def test_infer_main_runs_end_to_end(world, tmp_path):
     data = infer.main(args)
     assert len(data) == 3 and all("scores" in v for v in data.values())
     assert json.loads((tmp_path / "run_shutterstock.json").read_text()) == data
-    # the JAX flags the port does not have yet are refused, never ignored
+    # --speculative_draft_checkpoint runs (the captioner as its own draft):
+    # JAX's captions by speculative greedy decode; a GPT-J target with a
+    # GPT-2 draft is in tests/test_torch_gptj_paths.py
+    spec = ["--speculative_draft_checkpoint", str(d / "ckpt"), "--speculative_gamma", "3"]
+    JI.main(args[:-2] + spec + ["--out_filename_prefix", str(tmp_path / "jax_spec")])
+    got = infer.main(args + spec + ["--out_filename_prefix", str(tmp_path / "spec")])
+    assert got == json.loads((tmp_path / "jax_spec_shutterstock.json").read_text())
+    # the JAX flag the port does not have yet is refused, never ignored
     # (--int8_decode runs: tests/test_torch_int8_paths.py)
-    for extra in (["--tensor_parallel", "2"],
-                  ["--speculative_draft_checkpoint", str(d / "ckpt")]):
-        with pytest.raises(NotImplementedError):
-            infer.main(args + extra)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        infer.main(args + ["--tensor_parallel", "2"])
 
 
 def test_serve_main_matches_jax(world, tmp_path):

@@ -38,6 +38,9 @@ TRAIN_MODULES = ["clipcap_tpu_torch.train.autoclip", "clipcap_tpu_torch.train.op
                  "clipcap_tpu_torch.data.npy_reader", "clipcap_tpu_torch.data.token_prefix",
                  "clipcap_tpu_torch.utils.logging", "clipcap_tpu_torch.cli.train"]
 
+# GPT-J (float, int8, ring) and speculative decoding
+GPTJ_MODULES = ["clipcap_tpu_torch.models.gptj", "clipcap_tpu_torch.decode.speculative"]
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import clipcap_tpu_torch
@@ -87,7 +90,8 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
                          text=True, cwd=ROOT, env=_env(), timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES:
+    for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
+                 + GPTJ_MODULES):
         assert f"'{name}'" in out.stdout, name
 
 
@@ -97,6 +101,7 @@ INT8_MODULES = {"clipcap_tpu_torch.ops.quant": ["Int8Linear", "int8_linear", "qu
                                                 "quantize_weight", "int_mm"],
                 "clipcap_tpu_torch.models.gpt2": ["GPT2Int8", "Int8KVCache", "Int8BeamCache",
                                                   "quantize_params"],
+                "clipcap_tpu_torch.models.gptj": ["GPTJInt8", "quantize_params"],
                 "clipcap_tpu_torch.models.vit": ["quantize_params"],
                 "clipcap_tpu_torch.models.bundle": ["CaptionerBundle"],
                 "clipcap_tpu_torch.decode.beam": ["beam_search_batched"],
@@ -133,7 +138,8 @@ def test_source_has_no_jax_or_jax_package_import():
     top = re.compile(r"^(import|from)\s+(PIL|regex|transformers)(\.|\s|$)", re.M)
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for name in SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES:
+    for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
+                 + GPTJ_MODULES):
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
@@ -148,8 +154,8 @@ def test_source_has_no_jax_or_jax_package_import():
     assert hits == []
 
 
-@pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "ViTConfig", "CaptionerConfig",
-                                  "CLIPTextConfig", "TrainConfig"])
+@pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "GPTJConfig", "ViTConfig",
+                                  "CaptionerConfig", "CLIPTextConfig", "TrainConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     a, b = getattr(jax_config, name), getattr(torch_config, name)
     fa = [(f.name, f.type) for f in dataclasses.fields(a)]
@@ -163,6 +169,12 @@ def test_config_fields_and_defaults_match_jax(name):
 def test_gpt2_variants_match_jax(variant):
     assert (dataclasses.asdict(jax_config.GPT2Config.variant(variant))
             == dataclasses.asdict(torch_config.GPT2Config.variant(variant)))
+
+
+@pytest.mark.parametrize("variant", ["EleutherAI/gpt-j-6B", "gpt-j-6B", "gptj"])
+def test_gptj_variants_match_jax(variant):
+    assert (dataclasses.asdict(jax_config.GPTJConfig.variant(variant))
+            == dataclasses.asdict(torch_config.GPTJConfig.variant(variant)))
 
 
 @pytest.mark.parametrize("variant", ["ViT-B/32", "ViT-B/16", "ViT-L/14", "ViT-L/14@336px"])

@@ -46,6 +46,7 @@ from clipcap_tpu_torch.decode.serving import Request
 from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
 from clipcap_tpu_torch.models.bundle import CaptionerBundle
 from clipcap_tpu_torch.models.gpt2 import GPT2Int8
+from clipcap_tpu_torch.models.gptj import GPTJInt8
 from clipcap_tpu_torch.ops.kernels import fused_attention as FA
 from clipcap_tpu_torch.ops.kernels import fused_sampler as FS
 
@@ -151,10 +152,32 @@ def test_enable_int8_decode_switches_only_the_decode_surface(bundles):
     eng = port.make_serving_engine(TE.GenerationSettings(max_new_tokens=4, greedy=True),
                                    slots=2)
     assert eng.lm is port.lm_decode and eng.dtype == torch.bfloat16
-    gptj = CaptionerBundle(port.model, dataclasses.replace(port.cap_cfg, lm_type="gptj"),
-                           port.lm_cfg, port.tokenizer, port.vit_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        gptj.enable_int8_decode()
+    # GPT-J's int8 module enables too, its leaves JAX's enable_int8_decode's
+    # (JAX quantizes there under jit, where XLA multiplies by 1/127 and the
+    # port divides, as JAX's eager quantize_params does: a scale may differ
+    # by an ulp); T5's still raises, naming its ROADMAP item
+    jlm = dict(vocab_size=61, n_positions=64, n_embd=32, n_layer=2, n_head=4, rotary_dim=8)
+    cap_t = TC.CaptionerConfig(lm_type="gptj", mapper=TC.MapperConfig(**MAPPER))
+    gptj = CaptionerBundle.create(cap_t, TC.GPTJConfig(**jlm), Tok(), seed=3, device="cpu")
+    jgptj = JaxBundle(params=jax.tree_util.tree_map(jnp.asarray,
+                                                    convert.captioner_params(gptj.model)),
+                      cap_cfg=JC.CaptionerConfig(lm_type="gptj", mapper=JC.MapperConfig(**MAPPER)),
+                      lm_cfg=JC.GPTJConfig(**jlm), tokenizer=Tok())
+    gptj.enable_int8_decode()
+    jgptj.enable_int8_decode()
+    assert isinstance(gptj.lm_decode, GPTJInt8) and gptj.lm is gptj.model.lm
+    want = convert.gptj_state_dict(jax.tree_util.tree_map(np.asarray, jgptj.lm_decode_params))
+    got = {k: convert.to_numpy(v) for k, v in gptj.lm_decode.state_dict().items()}
+    assert sorted(got) == sorted(want)
+    for k in got:
+        if k.endswith(".s"):
+            np.testing.assert_allclose(got[k], want[k], rtol=2.5e-7, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    t5 = CaptionerBundle(port.model, dataclasses.replace(port.cap_cfg, lm_type="t5"),
+                         port.lm_cfg, port.tokenizer, port.vit_cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        t5.enable_int8_decode()
 
 
 def _prompts(n: int, seed: int) -> np.ndarray:
