@@ -2,7 +2,7 @@
 """Drive the PyTorch port's captioning, serving, evaluation and training
 paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--xl_layers N]
+    python3 chip_smoke.py [--xl_layers N] [--gptj_layers N]
 
 From the root of the repository, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It
@@ -87,13 +87,30 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 10. drives GPT-J-6B (phase (j), after (i), before (h)): K2/K3/K4 against
    their plain versions at its vocabulary of 50400 (9, 16, 64, 72 and 512
    rows, every cluster size there); the captioner (CLIP ViT-B/32, the
-   mapper at 4096, GPT-J-6B: 28 layers, 16 heads of 256) seeded on the
+   mapper at 4096, GPT-J-6B: 8 of its 28 layers since phase (k) came, for
+   the run's time, --gptj_layers 28 for all; 16 heads of 256) seeded on the
    card in bf16, a 2-layer cut held against the CPU (logits, the int8
    quantization); the no-beam sweep, beam search and serving in bf16 and
    in int8; speculative greedy decode with the model as its own draft and
    with the GPT-2 124M captioner as a draft; the three CLIs on a 2-layer
-   GPT-J checkpoint, with and without --int8_decode;
-11. prints one JSON line of kernels, the card line, and last
+   GPT-J checkpoint, with and without --int8_decode; and (j6) prefix-only
+   training over GPT-J-6B at all 28 layers frozen in int8 (BASELINE config #4: a 2-layer
+   transformer mapper at 4096, batch 16, lm_apply=apply_q8), the int8 LM
+   bit-identical after the steps, a 2-layer cut's loss against the CPU;
+11. drives T0-11B (phase (k), after (j), before (h)): K2/K3/K4 against
+   their plain versions at T0's vocabulary of 32128; the captioner (CLIP
+   ViT-B/32, the mapper at 4096, T5Config.variant("t0-11b"): 24 + 24
+   layers, 64 heads of 64, d_ff 10240, gated-gelu, untied lm_head) seeded
+   on the card in bf16 and driven by token ids, K1 in a bf16 and an f32
+   encode, a 2 + 2-layer cut held against the CPU (buckets, logits, the
+   int8 quantization, greedy tokens); greedy decode at batch 64, the
+   no-beam sweep, beam search at 320 rows (160 in int8, for the run's
+   time) and serving (256 requests on 64 slots, greedy and "fused_step")
+   in bf16 and in int8; cli.infer and
+   cli.serve on a 2 + 2-layer T0 checkpoint with a tokenizer.json that
+   the `tokenizers` package writes; each figure as a JSON line when it is
+   measured;
+12. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -143,6 +160,12 @@ def say(*args) -> None:
     print(*args, flush=True)
 
 
+def figure_line(card: str, label: str, figures: dict) -> None:
+    """One JSON line of measured figures, printed as soon as they are
+    measured, with the card's name and power limit."""
+    say(json.dumps({"figure": label, "card": card, **figures}))
+
+
 class IdTokenizer:
     """GPT-2's special ids without a vocabulary file: captions are printed
     as token ids (no GPT-2 vocabulary ships with the repository)."""
@@ -185,7 +208,7 @@ def device_ms(torch, fn, iters: int = 20, kernel: str | None = None,
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a profiler run now and then records no kernel at all
+    for _ in range(4):  # a profiler run now and then records no kernel at all
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -520,13 +543,13 @@ def prologue_plain(torch, x, appears, suppress, penalty, temperature, eos):
 
 
 def check_sampler(torch, FS, S, vocab: int = 50257, sampler_rows=SAMPLER_ROWS,
-                  timed_rows=TIMED_ROWS):
+                  timed_rows=TIMED_ROWS, eos: int = 50256):
     """K2/K3 (and K4's correctness) against their plain versions at every
-    row count in `sampler_rows` of `vocab`, on hard rows, for determinism,
-    Philox and the independence of the cluster size; then device times at
-    `timed_rows`. Returns the K2/K3 and K4 entries (at 72 rows, with the
-    timed sweep) and K4's launches in this phase."""
-    eos = 50256
+    row count in `sampler_rows` of `vocab` (K3's eos gate at id `eos`), on
+    hard rows, for determinism, Philox and the independence of the cluster
+    size; then device times at `timed_rows`. Returns the K2/K3 and K4
+    entries (at 72 rows, with the timed sweep) and K4's launches in this
+    phase."""
     k4_before = FS.LAUNCHES["fused_filter"]
     worst = {"K2": 0.0, "K3": 0.0}
 
@@ -1054,7 +1077,7 @@ def write_jpegs(folder: Path, n: int, seed: int) -> None:
         Image.fromarray(img).save(folder / f"img{i:03d}.jpg", quality=90)
 
 
-def traced_beam(torch, lm, prompt, device: str):
+def traced_beam(torch, lm, prompt, device: str, stop: int = STOP):
     """decode/beam.py's beam_search_batched with each step's selection
     recorded: every call of its _topk_iter takes one pick more than asked
     (the first picks do not change), so each step also gives the gap
@@ -1072,14 +1095,14 @@ def traced_beam(torch, lm, prompt, device: str):
     B._topk_iter = topk_and_next
     try:
         out = B.beam_search_batched(lm, prompt, beam_size=BEAM, max_new_tokens=BEAM_NEW,
-                                    stop_token_id=STOP, device=device)
+                                    stop_token_id=stop, device=device)
     finally:
         B._topk_iter = real
     return out, [sel for sel, _ in picks], torch.stack([gap for _, gap in picks], 1)
 
 
 def check_beam_vs_cpu(torch, bundle, prompt, card_out, card_sel, n_check: int = 2,
-                      gap_bound: float = FLIP_GAP, label: str = "(f)"):
+                      gap_bound: float = FLIP_GAP, label: str = "(f)", stop: int = STOP):
     """The card's best beams of the first n_check images against the port
     on the CPU (the bundle's decode LM, int8 once enabled). A best beam may
     differ only where the CPU's selection is a near-tie: from the first step
@@ -1091,7 +1114,7 @@ def check_beam_vs_cpu(torch, bundle, prompt, card_out, card_sel, n_check: int = 
     flip and the CPU seconds."""
     t0 = time.perf_counter()
     cpu_out, cpu_sel, cpu_gaps = traced_beam(torch, copy.deepcopy(bundle.lm_decode).cpu(),
-                                             prompt[:n_check].cpu(), "cpu")
+                                             prompt[:n_check].cpu(), "cpu", stop)
     cpu_s = time.perf_counter() - t0
 
     def best(out, i):
@@ -2456,6 +2479,10 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
 # --- 10. GPT-J-6B: the port's GPT-J captioner and speculative decoding ----------------
 
 GPTJ_IMAGES, GPTJ_CUT = 8, 2  # the sweep's images; the CPU cut's and the checkpoint's layers
+# GPT-J-6B's depth in (j), of its 28 layers: cut for the run's time since
+# phase (k) came (the decode paths are per layer the same at any depth);
+# --gptj_layers 28 runs it whole. (j6)'s frozen int8 LM is always whole.
+GPTJ_LAYERS = 8
 GPTJ_BEAM_IMAGES = {"bf16": 64, "int8": 32}  # int8 beam at half the images, for the run's time
 GPTJ_SOLO = 2  # served requests held against their solo generate
 SPEC_GAMMA, SPEC_NEW = 4, 67
@@ -2530,11 +2557,12 @@ def check_gptj_cut(torch, cut, prompt) -> dict:
     return dict(errs=errs, scale=scale)
 
 
-def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle) -> tuple:
+def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle,
+              gptj_layers: int = GPTJ_LAYERS) -> tuple:
     """(j) GPT-J-6B captioning and speculative decoding at full width: CLIP
-    ViT-B/32, the default mapper at width 4096 and GPT-J-6B (28 layers,
-    4096 wide, 16 heads of 256, rotary 64, vocabulary 50400), seeded on the
-    card in bf16. (j-) K2/K3/K4 against their plain versions at GPT-J's
+    ViT-B/32, the default mapper at width 4096 and GPT-J-6B (gptj_layers of
+    its 28 layers, 4096 wide, 16 heads of 256, rotary 64, vocabulary
+    50400), seeded on the card in bf16. (j-) K2/K3/K4 against their plain versions at GPT-J's
     vocabulary (check_sampler at GPTJ_SAMPLER_ROWS), the kernel's
     vocabulary limit and cluster sizes there; (j0) the build, and the
     2-layer cut against the CPU (check_gptj_cut); (j1) the no-beam sweep,
@@ -2591,7 +2619,7 @@ def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle) -> tup
 
     # (j0) the captioner in bf16
     t0 = time.perf_counter()
-    lm_cfg = GPTJConfig.variant("EleutherAI/gpt-j-6B")
+    lm_cfg = dataclasses.replace(GPTJConfig.variant("EleutherAI/gpt-j-6B"), n_layer=gptj_layers)
     cap_cfg = CaptionerConfig(lm_type="gptj", lm_variant="EleutherAI/gpt-j-6B",
                               visual_encoder_type="CLIP", visual_encoder_variant="ViT-B/32",
                               mapper=MapperConfig(dim_embedding=lm_cfg.n_embd))
@@ -2604,7 +2632,8 @@ def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle) -> tup
     lm_params = sum(p.numel() for p in lm.parameters())
     map_params = sum(p.numel() for p in bj.model.mapper.parameters())
     say(f"(j0) GPT-J-6B captioner seeded on the card in bf16 in {build_s:.1f} s: LM "
-        f"{lm_params / 1e9:.3f} B params ({lm_params * 2 / 1e9:.2f} GB; {lm_cfg.n_layer} layers, "
+        f"{lm_params / 1e9:.3f} B params ({lm_params * 2 / 1e9:.2f} GB; {lm_cfg.n_layer} of 28 "
+        f"layers, "
         f"width {lm_cfg.n_embd}, {lm_cfg.n_head} heads of {lm_cfg.n_embd // lm_cfg.n_head}, "
         f"rotary {lm_cfg.rotary_dim}, vocab {lm_cfg.vocab_size}), mapper {map_params / 1e9:.3f} B, "
         f"ViT-B/32 {sum(p.numel() for p in bj.model.visual.parameters()) / 1e6:.1f} M")
@@ -2892,9 +2921,657 @@ def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle) -> tup
         + f"; well-formed outputs ({time.perf_counter() - t_sub:.1f} s)")
     say(f"(j) peak device memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
     say(f"GPT-J phase (j): {time.perf_counter() - t_phase:.1f} s")
-    return launches, dict(build_s=build_s, cut=cut_check, decode=results, cli_s=cli_s,
-                          peak_gb=peak_gb, npz_gb=npz_gb, sampler_v50400={
+    return launches, dict(gptj_layers=gptj_layers, build_s=build_s, cut=cut_check,
+                          decode=results, cli_s=cli_s, peak_gb=peak_gb, npz_gb=npz_gb,
+                          sampler_v50400={
                               name: dict(k234[name], cluster=clusters) for name in k234})
+
+
+GPTJ_TRAIN_BATCH, GPTJ_TRAIN_STEPS, GPTJ_TRAIN_TOKENS = 16, 4, 24
+
+
+def gptj_int8_train(torch, card: str) -> dict:
+    """(j6) prefix-only training over GPT-J-6B frozen in int8 (BASELINE
+    config #4, with the README's 2-layer transformer mapper at 4096):
+    GPT-J-6B at all of its 28 layers seeded on the card in bf16 and
+    quantized (models/gptj.quantize_params), then the port's
+    make_train_step driving the LM's W8A16 forward through
+    lm_apply=model.lm.apply_q8, at batch 16, bf16 compute, remat and
+    AutoClip, on seeded CLIP-width prefixes and GPT-2-range token ids
+    padded with -1 after 8-24 tokens (create_train_state stores the frozen
+    scales and biases in bf16, as JAX's does). Checks: the int8 LM (q, s, biases,
+    LayerNorms, wte) bit-identical after the steps; the mapper moved;
+    finite losses; the loss of a 2-layer cut (the same mapper, the first
+    two int8 blocks with wte, ln_f and the head) on the card against the
+    port on the CPU within 16 bf16 steps of its value. Reports s per
+    step, launches per step and the busy share."""
+    import numpy as np
+
+    from clipcap_tpu_torch.core.config import (CaptionerConfig, GPTJConfig, MapperConfig,
+                                               TrainConfig)
+    from clipcap_tpu_torch.models.captioner import Captioner
+    from clipcap_tpu_torch.models.gptj import GPTJ, quantize_params
+    from clipcap_tpu_torch.train.train_step import (caption_loss, create_train_state,
+                                                    forward_params, make_train_step)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    lm_cfg = GPTJConfig.variant("EleutherAI/gpt-j-6B")
+    lm = GPTJ(lm_cfg, device="cuda", dtype=torch.bfloat16, seed=19)
+    q8 = quantize_params(lm)
+    del lm
+    torch.cuda.empty_cache()
+    cap = CaptionerConfig(lm_type="gptj", lm_variant="EleutherAI/gpt-j-6B", prefix_only=True,
+                          visual_encoder_type="none",
+                          mapper=MapperConfig(dim_embedding=lm_cfg.n_embd, num_layers=2))
+    tc = TrainConfig(optimizer_lr=1e-4, scheduler_warmup_steps=1, total_steps=100,
+                     bf16_compute=True, remat=True, gradient_clip_val=-1.0)
+    model = Captioner(cap, lm_cfg, lm=q8, device="cuda", seed=23)
+    state, tx = create_train_state(0, cap, lm_cfg, tc, model=model, device="cuda")
+    check(all(n.startswith("mapper.") for n in tx.names),
+          "(j6) the optimizer holds more than the mapper")
+    lm_before = {k: v.clone() for k, v in q8.state_dict().items()}
+    mapper_before = {k: v.clone() for k, v in model.mapper.state_dict().items()}
+    rng = np.random.default_rng(29)
+    tokens = rng.integers(1, 50256, size=(GPTJ_TRAIN_BATCH, GPTJ_TRAIN_TOKENS))
+    lengths = rng.integers(8, GPTJ_TRAIN_TOKENS + 1, size=GPTJ_TRAIN_BATCH)
+    tokens[np.arange(GPTJ_TRAIN_TOKENS)[None] >= lengths[:, None]] = -1
+    batch = {"tokens": torch.from_numpy(tokens).cuda(),
+             "prefix": torch.from_numpy(rng.normal(size=(GPTJ_TRAIN_BATCH, 512)).astype(
+                 np.float32)).cuda()}
+    step = make_train_step(cap, lm_cfg, tc, tx, lm_apply=model.lm.apply_q8)
+    state, m = step(state, batch)  # warm-up (lr 0 at step 0)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    losses = []
+    for _ in range(GPTJ_TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t_step) / GPTJ_TRAIN_STEPS
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"(j6) non-finite losses {losses}")
+    prof = profile_call(torch, "(j6) int8 GPT-J prefix step", lambda: step(state, batch),
+                        s_step * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k, v in q8.state_dict().items():
+        check(v.dtype == lm_before[k].dtype and torch.equal(v, lm_before[k]),
+              f"(j6) the frozen int8 LM's {k} changed in training")
+    moved = sum(float((v.float() - mapper_before[k].float()).abs().sum())
+                for k, v in model.mapper.state_dict().items())
+    check(moved > 0, "(j6) the mapper did not move")
+    del lm_before, mapper_before
+    # the 2-layer cut's loss, card against the port on the CPU
+    small = copy.copy(model)
+    small._modules = dict(model._modules)
+    small.lm = gptj_cut(q8, GPTJ_CUT)
+    mask = small.trainable_filter()
+
+    def cut_loss(mod, b):
+        with torch.no_grad():
+            fwd = forward_params(mod, mask, True)
+            return float(caption_loss(mod, fwd, b, cap, tc, lm_apply=mod.lm.apply_q8))
+
+    card_loss = cut_loss(small, batch)
+    cpu = copy.deepcopy(small).cpu()
+    cpu_loss = cut_loss(cpu, {k: v.cpu() for k, v in batch.items()})
+    del cpu
+    err, lim = abs(card_loss - cpu_loss), int8_bound(abs(cpu_loss))
+    check(np.isfinite(card_loss) and err <= lim,
+          f"(j6) the {GPTJ_CUT}-layer cut's loss {card_loss:.6f} against the CPU's {cpu_loss:.6f}: "
+          f"{err:.3e} > {lim:.3e}")
+    out = dict(s_per_step=s_step, launches_per_step=prof["launches"],
+               busy_share=prof["busy_ms"] / (s_step * 1e3), busy_ms=prof["busy_ms"],
+               losses=losses, peak_gb=peak_gb, cut_loss_err=err, cut_loss_bound=lim)
+    figure_line(card, f"(j6) int8 GPT-J-6B prefix train step, batch {GPTJ_TRAIN_BATCH}", out)
+    say(f"(j6) int8 GPT-J-6B prefix training ({lm_cfg.n_layer} int8 layers frozen, 2-layer "
+        f"mapper at {lm_cfg.n_embd}, batch {GPTJ_TRAIN_BATCH}, bf16, remat, AutoClip) on "
+        f"{card}: {s_step:.4f} s per step, {prof['launches']} launches per step, busy share "
+        f"{out['busy_share']:.3f}; losses {[round(x, 4) for x in losses]}; the int8 LM "
+        f"bit-identical, the mapper moved; the {GPTJ_CUT}-layer cut's loss {card_loss:.6f} "
+        f"against the CPU's {cpu_loss:.6f} (err {err:.3e}, bound {lim:.3e}); peak device memory "
+        f"{peak_gb:.2f} GB ({time.perf_counter() - t0:.1f} s)")
+    del state, model, small, q8
+    return out
+
+
+# --- 11. T5/T0: the port's T0-11B captioner -------------------------------------------
+
+T0_VOCAB, T0_SAMPLER_ROWS = 32128, [9, 16, 64, 72, 512]
+T0_IMAGES, T0_BATCH, T0_CUT, T0_GREEDY_NEW = 8, 64, 2, 67  # sweep images, greedy rows, CPU cut
+T0_BEAM_IMAGES = {"bf16": 64, "int8": 32}  # int8 beam at half the images, for the run's time
+T0_EOS, T0_STOP = 1, 5  # T5's </s>; a fixed id standing for "."
+T0_WORDS = 32100  # the tokenizer.json's vocabulary, T0's (its 28 padding rows decode to nothing)
+T0_CUT_SOLO = 8  # the cut's served requests held against their solo runs
+
+
+class T5IdTokenizer:
+    """T5's special ids without a tokenizer file (the HF tokenizer.json of
+    T0 does not ship with the repository): pad 0 (the decoder's start),
+    eos 1, unk 2, and a fixed id for "."; captions print as token ids."""
+
+    bos_token_id, pad_token_id, eos_token_id = 0, 0, T0_EOS
+    all_special_ids = [0, 1, 2]
+
+    def encode_text(self, text: str):
+        if text != ".":
+            raise SmokeError(f"T5IdTokenizer knows only '.', not {text!r}")
+        return [T0_STOP]
+
+    def decode_tokens(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def write_t5_tokenizer(folder: Path) -> None:
+    """A T5-style tokenizer.json of T0's 32100 entries, built with the
+    `tokenizers` package: T5's specials <pad> 0, </s> 1, <unk> 2, "." at 3,
+    words w0.. after, whitespace pre-tokenization, and T5's post-processor
+    appending </s>."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    specials = ["<pad>", "</s>", "<unk>"]
+    vocab = {t: i for i, t in enumerate(specials + ["."]
+                                         + [f"w{i}" for i in range(T0_WORDS - 4)])}
+    tk = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.add_special_tokens(specials)
+    tk.post_processor = processors.TemplateProcessing(single="$A </s>",
+                                                      special_tokens=[("</s>", 1)])
+    folder.mkdir(parents=True, exist_ok=True)
+    tk.save(str(folder / "tokenizer.json"))
+
+
+def t5_cut(lm, n_layer: int):
+    """The first n_layer blocks of each stack of a T5 (or T5Int8) with its
+    shared table, relative-bias tables, norms and head, as a module that
+    shares the model's tensors (nothing is copied)."""
+    import dataclasses
+
+    from torch import nn
+
+    cut = copy.copy(lm)
+    cut._modules = dict(lm._modules)
+    for name in ("encoder", "decoder"):
+        stack = copy.copy(getattr(lm, name))
+        stack._modules = dict(stack._modules)
+        stack.blocks = nn.ModuleList(list(stack.blocks)[:n_layer])
+        setattr(cut, name, stack)
+    cut.cfg = dataclasses.replace(lm.cfg, num_layers=n_layer, num_decoder_layers=n_layer)
+    return cut
+
+
+def check_t5_cut(torch, cut, prompts) -> dict:
+    """(k1) The card's T0 against the port on the CPU, on the first T0_CUT
+    layers of each stack at full width (the same bf16 tensors), on the
+    first 2 of `prompts`: the
+    relative-position buckets over distances -300..300 equal; prefill
+    logits of 2 rows (every position), a decode step and a ring step
+    within INT8_LOGIT_STEPS bf16 steps of the logits' scale; the cut's int8
+    quantization on the card equal to the CPU's (every q, s and dense
+    leaf), its int8 prefill and decode step within the same bound; 16
+    greedy tokens in bf16 and in int8, which may differ from the CPU's only
+    where the CPU's top-2 gap is under the bound; and the batch invariance
+    on the card: row 0's prefill logits among all of `prompts` against the
+    same prompt alone, within the same bound. Returns the errors, the
+    logits' scale, the batch invariance and the CPU's smallest gaps."""
+    from clipcap_tpu_torch.models.t5 import quantize_params, relative_position_bucket
+
+    prompt = prompts[:2]
+
+    rel = torch.arange(-300, 301, device="cuda")
+    for bidir in (True, False):
+        for nb, md in ((32, 128), (8, 32)):
+            check(torch.equal(relative_position_bucket(rel, bidir, nb, md).cpu(),
+                              relative_position_bucket(rel.cpu(), bidir, nb, md)),
+                  f"(k1) buckets (bidirectional {bidir}, {nb}, {md}) differ from the CPU's")
+    cpu = copy.deepcopy(cut).cpu()
+    errs, n = {}, 16
+
+    def steps(lm, p, ring: bool):
+        dev = p.device
+        logits, cache = lm.prefill(p, lm.init_cache(p.shape[0], p.shape[1] + 2),
+                                   full_logits=True)
+        tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        step, cache = lm.decode_step(lm.embed_tokens(tok)[:, None].to(p.dtype), cache)
+        out = [logits.float(), step.float()]
+        if ring:
+            rc = lm.init_cache(p.shape[0], p.shape[1] + 3)
+            _, rc = lm.prefill(p, rc)
+            pos = torch.full((p.shape[0],), p.shape[1], dtype=torch.int64, device=dev)
+            start = torch.zeros(p.shape[0], dtype=torch.int64, device=dev)
+            r, _ = lm.decode_step_ring(lm.embed_tokens(tok)[:, None].to(p.dtype), rc, pos, start)
+            out.append(r.float())
+        return out, float(logits.float().abs().max())
+
+    def greedy(card_lm, cpu_lm, label):
+        card_toks, _ = greedy_with_gaps(torch, card_lm, prompt, n)
+        cpu_toks, cpu_gaps = greedy_with_gaps(torch, cpu_lm, prompt.cpu(), n)
+        for r in range(prompt.shape[0]):
+            diff = (card_toks[r].cpu() != cpu_toks[r]).nonzero()
+            if diff.numel():
+                s_ = int(diff[0])
+                check(float(cpu_gaps[r, s_]) < bound, f"(k1) {label} greedy row {r} differs "
+                      f"from the CPU at step {s_}, where the CPU's gap is "
+                      f"{float(cpu_gaps[r, s_]):.4g} (bound {bound:.4g})")
+        return float(cpu_gaps.min())
+
+    with torch.no_grad():
+        card, scale = steps(cut, prompt, True)
+        want, _ = steps(cpu, prompt.cpu(), True)
+        bound = int8_bound(scale)
+        for name, a, b in zip(("prefill", "decode", "ring"), card, want):
+            errs[name] = max_abs(a.cpu(), b)
+            check(bool(torch.isfinite(a).all()) and errs[name] <= bound,
+                  f"(k1) bf16 {name} logits card vs CPU: max abs err {errs[name]:.4g} > "
+                  f"{bound:.4g}")
+        gaps = {"bf16": greedy(cut, cpu, "bf16")}
+        q_card, q_cpu = quantize_params(cut), quantize_params(cpu)
+        sd_cpu = q_cpu.state_dict()
+        for name, t in q_card.state_dict().items():
+            check(t.dtype == sd_cpu[name].dtype and torch.equal(t.cpu(), sd_cpu[name]),
+                  f"(k1) int8 {name} differs from the CPU's quantization")
+        card8, _ = steps(q_card, prompt, False)
+        want8, _ = steps(q_cpu, prompt.cpu(), False)
+        for name, a, b in zip(("int8 prefill", "int8 decode"), card8, want8):
+            errs[name] = max_abs(a.cpu(), b)
+            check(bool(torch.isfinite(a).all()) and errs[name] <= bound,
+                  f"(k1) {name} logits card vs CPU: max abs err {errs[name]:.4g} > {bound:.4g}")
+        gaps["int8"] = greedy(q_card, q_cpu, "int8")
+        lb, _ = cut.prefill(prompts, cut.init_cache(prompts.shape[0], prompts.shape[1] + 1))
+        l1, _ = cut.prefill(prompts[:1], cut.init_cache(1, prompts.shape[1] + 1))
+        inv = max_abs(lb[0], l1[0])
+        check(inv <= bound, f"(k1) the cut's row 0 in a {prompts.shape[0]}-row batch and alone: "
+              f"max abs err {inv:.4g} > {bound:.4g}")
+    del cpu, q_card, q_cpu, sd_cpu
+    return dict(errs=errs, scale=scale, batch_invariance=inv, min_cpu_gap=gaps)
+
+
+def t5_path(torch, counters, FS, S, card: str, work: Path) -> tuple:
+    """(k) T0-11B captioning at full width and depth: CLIP ViT-B/32, the
+    default mapper at width 4096 and T5Config.variant("t0-11b")
+    (bigscience/T0: 24 + 24 layers, 4096 wide, 64 heads of 64, d_ff 10240,
+    gated-gelu, an untied lm_head, vocabulary 32128), seeded on the card in
+    bf16 and driven by token ids (T5IdTokenizer). (k-) K2/K3/K4 against
+    their plain versions at T0's vocabulary (check_sampler at
+    T0_SAMPLER_ROWS) and the cluster sizes there; (k0) the build, the
+    encoder's K1 in bf16 and in f32 (the ViT cast); (k1) the 2 + 2-layer
+    cut against the CPU (check_t5_cut); then on the bf16 LM and, after
+    bundle.enable_int8_decode(), on the int8 one (T5Int8, float cache):
+    (k2) greedy decode of 64 images x 67 tokens; (k3) the no-beam sweep,
+    8 images x 9 top-p x 75 steps (K2 at [72, 32128]); (k4) beam search,
+    64 images x beam 5 x 67 tokens (320 rows; 32 images in int8, for the
+    run's time; cross-attention K/V
+    recomputed from the encoder output every step), the best beams of 2
+    images of the card's cut against the CPU's; (k5) serving, 256 requests
+    on 64 slots, greedy and "fused_step" (K3 at [64, 32128]), the first
+    greedy requests against their solo runs; (k6) cli.infer (beam, and
+    --no_beam with --int8_decode) and cli.serve (float and --int8_decode)
+    on a T0-width checkpoint of 2 + 2 layers and a 1-layer mapper, with a
+    tokenizer.json written by `tokenizers`. The launch counters are set to
+    0 just before (k0)'s encodes and read after (k6)."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+    import types
+
+    import numpy as np
+
+    from clipcap_tpu_torch.cli import infer as infer_cli
+    from clipcap_tpu_torch.cli import serve as serve_cli
+    from clipcap_tpu_torch.cli.loading import load_captioner
+    from clipcap_tpu_torch.core.config import CaptionerConfig, MapperConfig, T5Config, ViTConfig
+    from clipcap_tpu_torch.data.preprocessing import normalize_on_device
+    from clipcap_tpu_torch.decode.beam import beam_search_batched
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.decode.serving import Request, ServingEngine
+    from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+    from clipcap_tpu_torch.models.t5 import T5, T5Int8
+    from clipcap_tpu_torch.train.checkpoints import save_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (k-) the sampler kernels at T0's vocabulary; comparisons, not counted on the path
+    t0 = time.perf_counter()
+    FS._check_vocab(T0_VOCAB)
+    k234, _ = check_sampler(torch, FS, S, vocab=T0_VOCAB, sampler_rows=T0_SAMPLER_ROWS,
+                            timed_rows=T0_SAMPLER_ROWS, eos=T0_EOS)
+    clusters = {r: FS.cluster_size(r, T0_VOCAB) for r in T0_SAMPLER_ROWS}
+    say(f"(k-) sampler kernels at V={T0_VOCAB}: cluster sizes {clusters}; checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (k0) the captioner in bf16
+    t0 = time.perf_counter()
+    lm_cfg = T5Config.variant("t0-11b")
+    cap_cfg = CaptionerConfig(lm_type="t0", lm_variant="t0-11b", visual_encoder_type="CLIP",
+                              visual_encoder_variant="ViT-B/32",
+                              mapper=MapperConfig(dim_embedding=lm_cfg.d_model))
+    bt = CaptionerBundle.create(cap_cfg, lm_cfg, T5IdTokenizer(),
+                                ViTConfig.clip_variant("ViT-B/32"), seed=31, device="cuda",
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lm = bt.model.lm
+    check(isinstance(lm, T5) and lm.shared.dtype == torch.bfloat16 and lm.lm_head is not None,
+          "(k0) not a bf16 T5 with an untied head")
+    lm_params = sum(p.numel() for p in lm.parameters())
+    say(f"(k0) T0-11B captioner seeded on the card in bf16 in {build_s:.1f} s: LM "
+        f"{lm_params / 1e9:.3f} B params ({lm_params * 2 / 1e9:.2f} GB; {lm_cfg.num_layers} + "
+        f"{lm_cfg.num_decoder_layers} layers, width {lm_cfg.d_model}, {lm_cfg.num_heads} heads "
+        f"of {lm_cfg.d_kv}, d_ff {lm_cfg.d_ff}, {lm_cfg.feed_forward_proj}, vocab "
+        f"{lm_cfg.vocab_size}), mapper "
+        f"{sum(p.numel() for p in bt.model.mapper.parameters()) / 1e9:.3f} B")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    pixels = normalize_on_device(torch.rand(T0_BEAM_IMAGES["bf16"], 3, 224, 224,
+                                            generator=gen, device="cuda"))
+    torch.cuda.synchronize()
+    counters(reset=True)
+    with torch.no_grad():
+        feats = bt.encode_image(pixels)  # K1 in bf16
+        prompt = bt.project_prefix(feats)  # [64, 10, 4096] bf16
+        vit32 = copy.deepcopy(bt.model.visual).float()
+        feats32 = vit32(pixels, output="pooled")  # K1 in f32
+        cos = float(torch.nn.functional.cosine_similarity(feats.float(), feats32, dim=-1).min())
+    del vit32
+    p_len = prompt.shape[1]
+    k1 = counters()["fused_attention"]
+    check(k1 == 24 and cos > 0.99, f"(k0) K1 launched {k1} times in a bf16 and an f32 encode "
+          f"(want 24), or the two encodes disagree (min cosine {cos:.4f})")
+    say(f"(k0) ViT-B/32 encode of {pixels.shape[0]} images in bf16 and in f32: K1 {k1} launches, "
+        f"min cosine {cos:.5f}")
+
+    t0 = time.perf_counter()
+    cut = t5_cut(lm, T0_CUT)
+    cut_check = check_t5_cut(torch, cut, prompt[:T0_BATCH])
+    scale = cut_check["scale"]
+    bound = int8_bound(scale)
+    say(f"(k1) the {T0_CUT} + {T0_CUT}-layer cut at full width card vs CPU (bf16 both), max abs "
+        "err: " + ", ".join(f"{k} {v:.4g}" for k, v in cut_check["errs"].items())
+        + f" (bound {bound:.4g}: {INT8_LOGIT_STEPS} bf16 steps of max|logit| {scale:.3f}); "
+        f"row 0 in a {T0_BATCH}-row batch and alone {cut_check['batch_invariance']:.4g}; "
+        f"buckets equal; the cut's int8 q, s and dense leaves equal the CPU's; greedy tokens "
+        f"differ only at near-ties (the CPU's smallest top-2 gaps {cut_check['min_cpu_gap']}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    n_rows, n_steps = T0_IMAGES * len(TOP_P_SWEEP), 75
+
+    def sweep(steps: int = n_steps):
+        return NoBeamCaptionSampler(top_p_values=TOP_P_SWEEP, max_decode_length=steps,
+                                    device="cuda").sample_batch(bt, pixels[:T0_IMAGES])
+
+    def greedy_call(steps: int = T0_GREEDY_NEW):
+        return generate(bt.lm_decode, prompt[:T0_BATCH],
+                        GenerationSettings(max_new_tokens=steps, greedy=True), device="cuda")
+
+    def beam_call(images: int, steps: int = BEAM_NEW):
+        return beam_search_batched(bt.lm_decode, prompt[:images], beam_size=BEAM,
+                                   max_new_tokens=steps, stop_token_id=T0_STOP, device="cuda")
+
+    pool = bt.project_prefix(torch.randn(SERVE_REQUESTS, 512, generator=gen, device="cuda"))
+    serve_caps = np.random.default_rng(47).integers(8, 25, SERVE_REQUESTS).tolist()
+    reqs = [Request(i, i, max_length=c) for i, c in enumerate(serve_caps)]
+    base = GenerationSettings(max_new_tokens=SERVE_NEW, eos_token_id=T0_EOS)
+    greedy = dataclasses.replace(base, greedy=True)
+    serve_settings = {"greedy": greedy,
+                      "fused_step": dataclasses.replace(base, top_p=0.8, repetition_penalty=1.2,
+                                                        min_length=5, filter_method="fused_step")}
+    results = {}
+
+    def decode_phases(dtype: str) -> None:
+        """(k2)-(k5) on bt.lm_decode: greedy, the sweep, beam search and serving."""
+        lmd = bt.lm_decode
+        r = results.setdefault(dtype, {})
+        # (k2) greedy decode at batch 64 (the README's T0 configuration)
+        t_sub = time.perf_counter()
+        out, secs = timed_call(torch, greedy_call, lambda: greedy_call(2))
+        check(out["tokens"].shape == (T0_BATCH, T0_GREEDY_NEW)
+              and int(out["tokens"].max()) < T0_VOCAB, f"(k2) {dtype} greedy: wrong tokens")
+        prof = per_step_profile(torch, f"(k2) {dtype} T0 greedy", greedy_call, 8, 16)
+        # batch invariance at full depth: row 0's prefill logits in the
+        # 64-row batch against the same prompt alone
+        with torch.no_grad():
+            l64, _ = lmd.prefill(prompt[:T0_BATCH], lmd.init_cache(T0_BATCH, p_len + 1))
+            l1, _ = lmd.prefill(prompt[:1], lmd.init_cache(1, p_len + 1))
+        inv = dict(max_abs_diff=max_abs(l64[0], l1[0]), scale=float(l1.float().abs().max()),
+                   top1_equal=bool(torch.equal(l64[0].argmax(-1), l1[0].argmax(-1))))
+        del l64, l1
+        r["greedy"] = dict(captions_per_s=T0_BATCH / secs, wall_ms=secs * 1e3, **prof,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           batch_invariance=inv)
+        figure_line(card, f"(k2) T0-11B {dtype} greedy, batch {T0_BATCH}", r["greedy"])
+        say(f"(k2) {dtype} T0-11B greedy, batch {T0_BATCH} x {T0_GREEDY_NEW} tokens on {card}: "
+            f"{T0_BATCH / secs:.2f} captions/s; device {prof['device_ms_per_step']:.3f} ms and "
+            f"{prof['launches_per_step']:.1f} launches per step; busy share "
+            f"{prof['busy_share']:.3f}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"row 0's prefill logits in the {T0_BATCH}-row batch and alone differ by "
+            f"{inv['max_abs_diff']:.4g} at scale {inv['scale']:.4g} "
+            f"({time.perf_counter() - t_sub:.1f} s)")
+        # (k3) the sweep: K2 at [72, 32128] once a step
+        t_sub = time.perf_counter()
+        k2 = counters()["fused_filter_sample"]
+        caps, secs = timed_call(torch, sweep, lambda: sweep(2))
+        k2 = counters()["fused_filter_sample"] - k2
+        check(k2 == 2 + n_steps, f"(k3) {dtype}: K2 launched {k2} times in the warm-up and the "
+              f"sweep, want one per decode step ({2 + n_steps})")
+        ids = [int(t) for c in caps for s_ in c for t in s_.split()]
+        check(len(caps) == T0_IMAGES and all(len(c) == len(TOP_P_SWEEP) for c in caps)
+              and all(0 <= t < T0_VOCAB for t in ids), f"(k3) {dtype} sweep: wrong captions")
+        prof = per_step_profile(torch, f"(k3) {dtype} T0 sweep", sweep, 8, 16)
+        r["sweep"] = dict(captions_per_s=n_rows / secs, wall_ms=secs * 1e3, **prof)
+        figure_line(card, f"(k3) T0-11B {dtype} sweep, {n_rows} rows", r["sweep"])
+        say(f"(k3) {dtype} T0-11B sweep, {T0_IMAGES} images x {len(TOP_P_SWEEP)} top-p "
+            f"({n_rows} rows, {n_steps} steps) on {card}: {n_rows / secs:.2f} captions/s; device "
+            f"{prof['device_ms_per_step']:.3f} ms and {prof['launches_per_step']:.1f} launches "
+            f"per step; busy share {prof['busy_share']:.3f} ({time.perf_counter() - t_sub:.1f} s)")
+        # (k4) beam search: 64 images x beam 5 x 67 tokens
+        t_sub = time.perf_counter()
+        n_img = T0_BEAM_IMAGES[dtype]
+        out, secs = timed_call(torch, lambda: beam_call(n_img), lambda: beam_call(2, 2))
+        check(bool(torch.isfinite(out["scores"]).all()) and out["tokens"].shape == (
+            n_img, BEAM, BEAM_NEW) and int(out["tokens"].max()) < T0_VOCAB,
+              f"(k4) {dtype} beam: non-finite scores, a wrong shape or an id past the vocabulary")
+        del out
+        prof = profile_call(torch, f"(k4) {dtype} T0 beam", lambda: beam_call(n_img),
+                            secs * 1e3)
+        r["beam"] = dict(images=n_img, captions_per_s=n_img / secs, wall_ms=secs * 1e3,
+                         device_ms_per_step=prof["busy_ms"] / BEAM_NEW,
+                         launches_per_step=prof["launches"] / BEAM_NEW,
+                         busy_share=prof["busy_ms"] / prof["wall_ms"],
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        figure_line(card, f"(k4) T0-11B {dtype} beam, {n_img * BEAM} rows", r["beam"])
+        say(f"(k4) {dtype} T0-11B beam {n_img} images x beam {BEAM} x {BEAM_NEW} tokens "
+            f"({n_img * BEAM} rows) on {card}: {r['beam']['captions_per_s']:.2f} captions/s; "
+            f"device {r['beam']['device_ms_per_step']:.3f} ms and "
+            f"{r['beam']['launches_per_step']:.1f} launches per step; busy share "
+            f"{r['beam']['busy_share']:.3f}; peak {r['beam']['peak_gb']:.2f} GB "
+            f"({time.perf_counter() - t_sub:.1f} s)")
+        # (k5) serving: 256 requests on 64 slots, greedy and "fused_step"
+        t_sub = time.perf_counter()
+        served = {}
+        for name, st in serve_settings.items():
+            eng = bt.make_serving_engine(st, slots=SERVE_SLOTS, steps_per_sync=SERVE_SYNC,
+                                         pipeline_depth=2).warmup()
+            check(eng.lm is lmd and eng.dtype == torch.bfloat16,
+                  f"(k5) {dtype} {name}: the engine does not run the bf16 decode LM")
+            k3 = counters()["fused_step_sample"]
+            t0 = time.perf_counter()
+            res = eng.serve(reqs, seed=7, prefix_pool=pool)
+            wall = time.perf_counter() - t0
+            k3 = counters()["fused_step_sample"] - k3
+            stats = eng.last_stats
+            want_k3 = stats["steps"] if name == "fused_step" else 0
+            check(k3 == want_k3, f"(k5) {dtype} {name}: K3 launched {k3} times over "
+                  f"{stats['steps']} dispatched steps, want {want_k3}")
+            check(sorted(res) == list(range(SERVE_REQUESTS)) and all(
+                0 < len(x["tokens"]) <= serve_caps[i] for i, x in res.items()),
+                  f"(k5) {dtype} {name}: not every request answered within its cap")
+            lat = np.asarray([x["latency_s"] for x in res.values()])
+            served[name] = res
+            r[f"serve_{name}"] = dict(captions_per_s=SERVE_REQUESTS / wall,
+                                      p50_s=float(np.percentile(lat, 50)),
+                                      p99_s=float(np.percentile(lat, 99)),
+                                      occupancy=stats["occupancy"], steps=stats["steps"])
+            figure_line(card, f"(k5) T0-11B {dtype} serve {name}, {SERVE_REQUESTS} requests on "
+                        f"{SERVE_SLOTS} slots", r[f"serve_{name}"])
+            say(f"(k5) {dtype} T0-11B serve {SERVE_REQUESTS} requests ({name}; caps 8-24), "
+                f"{SERVE_SLOTS} slots on {card}: {SERVE_REQUESTS / wall:.2f} captions/s; "
+                f"latency_s p50 {r[f'serve_{name}']['p50_s']:.4f}, p99 "
+                f"{r[f'serve_{name}']['p99_s']:.4f}; occupancy {stats['occupancy']}; "
+                f"{stats['steps']} steps; K3 +{k3}")
+            del eng
+        # a served request against its solo run: the two batch it with
+        # different rows, so their bf16 roundings differ, and 24 + 24 layers
+        # of random weights amplify that noise (k2's batch invariance at
+        # full depth against k1's at 2 + 2 layers): a flip is allowed where
+        # the solo's top-2 gap is under the noise this model shows between
+        # two batchings of one prompt. The cut's serving below holds the
+        # strict bound.
+        noise = r["greedy"]["batch_invariance"]["max_abs_diff"]
+        flips = 0
+        for i in range(GPTJ_SOLO):
+            ref = generate(lmd, pool[i:i + 1],
+                           dataclasses.replace(greedy, max_length=serve_caps[i]), device="cuda")
+            want = ref["tokens"][0, : int(ref["lengths"][0])].tolist()
+            got = served["greedy"][i]["tokens"]
+            if got != want:
+                s_ = first_difference(got, want)
+                with torch.no_grad():
+                    _, gaps = greedy_with_gaps(torch, lmd, pool[i:i + 1], SERVE_NEW)
+                    solo, _ = lmd.prefill(pool[i:i + 1], lmd.init_cache(1, pool.shape[1] + 1))
+                lim = max(bound, int8_bound(float(solo.float().abs().max())), noise)
+                gap = float(gaps[0, s_])
+                check(gap < lim, f"(k5) {dtype} request {i} differs from its solo generate "
+                      f"at step {s_}, where the solo gap is {gap:.3e} (bound {lim:.3e})")
+                flips += 1
+        r["serve_flips"] = flips
+        say(f"(k5) the first {GPTJ_SOLO} greedy requests against their solo generate: near-tie "
+            f"flips {flips} ({time.perf_counter() - t_sub:.1f} s)")
+
+    decode_phases("bf16")
+    # (k5) serving on the 2 + 2-layer cut, where the batch noise is small:
+    # 64 requests on 16 slots, each of the first T0_CUT_SOLO against its
+    # solo run within the cut's strict bound
+    t0 = time.perf_counter()
+    eng = ServingEngine(cut, cut.cfg, prefix_len=p_len, settings=greedy, slots=16,
+                        steps_per_sync=SERVE_SYNC, pipeline_depth=2, device="cuda",
+                        dtype=torch.bfloat16)
+    cut_res = eng.serve(reqs[:64], seed=7, prefix_pool=pool)
+    cut_flips = 0
+    for i in range(T0_CUT_SOLO):
+        ref = generate(cut, pool[i:i + 1], dataclasses.replace(greedy, max_length=serve_caps[i]),
+                       device="cuda")
+        want = ref["tokens"][0, : int(ref["lengths"][0])].tolist()
+        got = cut_res[i]["tokens"]
+        if got != want:
+            s_ = first_difference(got, want)
+            with torch.no_grad():
+                _, gaps = greedy_with_gaps(torch, cut, pool[i:i + 1], SERVE_NEW)
+            gap = float(gaps[0, s_])
+            check(gap < bound, f"(k5) the cut's request {i} differs from its solo generate at "
+                  f"step {s_}, where the solo gap is {gap:.3e} (bound {bound:.3e})")
+            cut_flips += 1
+    results["bf16"]["cut_serve_flips"] = cut_flips
+    del eng, cut_res
+    say(f"(k5) the {T0_CUT} + {T0_CUT}-layer cut served 64 requests on 16 slots; the first "
+        f"{T0_CUT_SOLO} against their solo generate: near-tie flips {cut_flips} (bound {bound:.4g}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # (k4) the best beams of 2 images: the card's cut against the CPU's
+    t0 = time.perf_counter()
+    traced, card_sel, _ = traced_beam(torch, cut, prompt[:2], "cuda", T0_STOP)
+    results["bf16"]["beam_flips"], _ = check_beam_vs_cpu(
+        torch, types.SimpleNamespace(lm_decode=cut), prompt[:2], traced, card_sel,
+        gap_bound=bound, label="(k4) the 2 + 2-layer cut's", stop=T0_STOP)
+    say(f"(k4) cut beam check: {time.perf_counter() - t0:.1f} s")
+    del traced, card_sel
+
+    t0 = time.perf_counter()
+    bt.enable_int8_decode()
+    torch.cuda.synchronize()
+    q8 = bt.lm_decode
+    check(isinstance(q8, T5Int8) and not hasattr(q8, "chunked_forward"),
+          "(k) the int8 LM is not T5Int8")
+    int8_gb = sum(b.numel() * b.element_size() for b in q8.buffers()) / 1e9
+    dense_gb = sum(p.numel() * p.element_size() for p in q8.parameters()) / 1e9
+    say(f"(k) enable_int8_decode: {time.perf_counter() - t0:.1f} s; int8 LM {int8_gb:.2f} GB of "
+        f"int8 weights and scales + {dense_gb:.2f} GB of bf16 tables and norms")
+    decode_phases("int8")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # (k6) the CLIs on a T0-width checkpoint of 2 + 2 layers and a 1-layer mapper
+    t_sub = time.perf_counter()
+    small = copy.copy(bt.model)
+    small._modules = dict(bt.model._modules)
+    small.lm = cut
+    small.mapper = copy.copy(bt.model.mapper)
+    small.mapper._modules = dict(bt.model.mapper._modules)
+    small.mapper.layers = torch.nn.ModuleList(list(bt.model.mapper.layers)[:1])
+    small_cap = dataclasses.replace(cap_cfg, mapper=dataclasses.replace(cap_cfg.mapper,
+                                                                          num_layers=1))
+    small.cfg, small.lm_cfg = small_cap, cut.cfg
+    ckpt = work / "t0_ckpt"
+    save_checkpoint(str(ckpt), small, small_cap, cut.cfg)
+    npz_gb = (ckpt / "consolidated.npz").stat().st_size / 1e9
+    model, l_cap, l_lm, _ = load_captioner(str(ckpt), device="cuda")
+    want = small.state_dict()
+    for name, p in model.state_dict().items():
+        check(p.is_cuda and p.dtype == want[name].dtype and torch.equal(p, want[name]),
+              f"(k6) the T0 checkpoint's {name} differs from what was written")
+    check(l_cap == small_cap and l_lm == cut.cfg and isinstance(model.lm, T5),
+          "(k6) the T0 checkpoint's configs differ")
+    write_t5_tokenizer(work / "t5_vocab")
+    write_read_s = time.perf_counter() - t_sub
+    del model, want, small, bt, lm, cut, q8, pool, prompt, pixels, feats, feats32
+    torch.cuda.empty_cache()
+    say(f"(k6) T0 checkpoint ({npz_gb:.2f} GB .npz, full width, {T0_CUT} + {T0_CUT} layers, "
+        f"1-layer mapper) written and read back bit for bit, tokenizer.json of {T0_WORDS} "
+        f"entries written by tokenizers, in {write_read_s:.1f} s")
+    common = ["--checkpoint_path", str(ckpt), "--tokenizer_vocab_dir", str(work / "t5_vocab"),
+              "--device", "cuda"]
+    clip = ["--clip_model", "ViT-B/32", "--clip_checkpoint", str(work / "clip.pt"),
+            "--clip_merges", str(work / "clip_merges.txt")]
+    cli_s = {}
+    for name, extra, n_img, want_k2 in (
+            ("beam", ["--total_samples", "8"], 8, 0),
+            ("int8_no_beam", ["--no_beam", "--int8_decode", "--total_samples", "2"], 2, 75 * 2)):
+        before = counters()
+        t0 = time.perf_counter()
+        with open(work / f"t0_{name}.txt", "w") as log, contextlib.redirect_stdout(log):
+            data = infer_cli.main(common + clip + extra + [
+                "--folder_path", str(work / "images"),
+                "--out_filename_prefix", str(work / f"t0_{name}")])
+        cli_s[f"infer_{name}"] = time.perf_counter() - t0
+        after = counters()
+        check(len(data) == n_img and all(len(e["generated_captions"]) == 1 and all(
+            math.isfinite(v) for v in e["scores"].values()) for e in data.values()),
+              f"(k6) cli.infer {name}: not one caption and finite scores per image")
+        k2 = after["fused_filter_sample"] - before["fused_filter_sample"]
+        check(k2 == want_k2 and after["fused_attention"] > before["fused_attention"],
+              f"(k6) cli.infer {name}: K2 rose by {k2}, want {want_k2}, or K1 did not run")
+    for int8 in ("", "--int8_decode"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = serve_cli.main(common + ([int8] if int8 else []) + [
+                "--prefixes_npy", str(work / "int8_feats.npy"),
+                "--out_jsonl", str(work / f"t0_serve{int8}.jsonl"), "--slots", "16",
+                "--max_new_tokens", "24", "--eos_token_id", str(T0_EOS)])
+        cli_s[f"serve{int8 and '_int8'}"] = time.perf_counter() - t0
+        lines = [json.loads(x) for x in
+                 (work / f"t0_serve{int8}.jsonl").read_text().splitlines()]
+        check(n == 64 and len(lines) == 64 and all(0 < x["tokens"] <= 24 for x in lines),
+              f"(k6) cli.serve {int8}: wrong JSONL")
+    launches = counters()
+    say(f"(k6) the CLIs on the T0 checkpoint, seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in cli_s.items())
+        + f"; well-formed outputs ({time.perf_counter() - t_sub:.1f} s)")
+    figure_line(card, "(k) T0-11B peak device memory", dict(peak_gb=peak_gb, int8_gb=int8_gb))
+    say(f"(k) peak device memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
+    say(f"T0 phase (k): {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(build_s=build_s, cut=cut_check, decode=results, cli_s=cli_s,
+                          peak_gb=peak_gb, npz_gb=npz_gb, int8_gb=int8_gb,
+                          sampler_v32128={name: dict(k234[name], cluster=clusters)
+                                          for name in k234})
 
 
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
@@ -2939,6 +3616,9 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="drive the port's paths on one CUDA card")
+    ap.add_argument("--gptj_layers", type=int, default=GPTJ_LAYERS, choices=range(2, 29),
+                    metavar="N", help=f"GPT-J-6B's depth in phase (j), of its 28 layers "
+                    f"(default {GPTJ_LAYERS})")
     ap.add_argument("--xl_layers", type=int, default=XL_LAYERS, choices=range(1, 49),
                     metavar="N", help=f"GPT2-XL's depth in phase (i), of its 48 layers "
                     f"(default {XL_LAYERS})")
@@ -3004,7 +3684,12 @@ def main() -> int:
         int8_launches, int8_rates = int8_path(torch, counters, card, work, handles, bundle,
                                                 args.xl_layers)
         del handles
-        gptj_launches, gptj_rates = gptj_path(torch, counters, FS, S, card, work, bundle)
+        gptj_launches, gptj_rates = gptj_path(torch, counters, FS, S, card, work, bundle,
+                                              args.gptj_layers)
+        torch.cuda.empty_cache()
+        gptj_rates["int8_prefix_train"] = gptj_int8_train(torch, card)
+        torch.cuda.empty_cache()
+        t5_launches, t5_rates = t5_path(torch, counters, FS, S, card, work)
         torch.cuda.empty_cache()
         train_launches, train_rates = train_path(torch, counters, card, work)
     finally:
@@ -3015,6 +3700,7 @@ def main() -> int:
                                  "evaluate": eval_launches["fused_attention"],
                                  "int8": int8_launches["fused_attention"],
                                  "gptj": gptj_launches["fused_attention"],
+                                 "t5": t5_launches["fused_attention"],
                                  "train": train_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
@@ -3022,11 +3708,13 @@ def main() -> int:
                                      "evaluate": eval_launches["fused_filter_sample"],
                                      "int8": int8_launches["fused_filter_sample"],
                                      "gptj": gptj_launches["fused_filter_sample"],
+                                     "t5": t5_launches["fused_filter_sample"],
                                      "train": train_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"],
                                    "int8": int8_launches["fused_step_sample"],
-                                   "gptj": gptj_launches["fused_step_sample"]},
+                                   "gptj": gptj_launches["fused_step_sample"],
+                                   "t5": t5_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
     for name, by_path in paths.items():
         if name != "fused_filter":
@@ -3042,10 +3730,12 @@ def main() -> int:
                                      k234["fused_step_sample"]),
                "fused_filter": (sampler_src, "clipcap_tpu/ops/pallas/fused_sampler.py:447",
                                 k234["fused_filter"])}
-    # the sampler kernels also at GPT-J's vocabulary: [72, 50400] and the sweep of rows
+    # the sampler kernels also at GPT-J's vocabulary and T0's: [72, V] and the sweep of rows
     v50400 = gptj_rates.pop("sampler_v50400")
+    v32128 = t5_rates.pop("sampler_v32128")
     for name in ("fused_filter_sample", "fused_step_sample", "fused_filter"):
         sources[name][2]["at_vocab_50400"] = v50400[name]
+        sources[name][2]["at_vocab_32128"] = v32128[name]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(paths[name].values()), launches_by_path=paths[name],
                     on_path=name != "fused_filter", **nums)
@@ -3057,6 +3747,7 @@ def main() -> int:
     say(f"evaluate on {card}: " + json.dumps(eval_rates))
     say(f"int8 on {card}: " + json.dumps(int8_rates))
     say(f"gptj on {card}: " + json.dumps(gptj_rates))
+    say(f"t5 on {card}: " + json.dumps(t5_rates))
     say(f"train on {card}: " + json.dumps(train_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)

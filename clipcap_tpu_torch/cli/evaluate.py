@@ -95,7 +95,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_samples", type=int, default=10)
     p.add_argument("--manual_seed", type=int, default=42)
     p.add_argument("--int8_decode", action="store_true",
-                   help="int8 weight-streaming decode for the samplers (gpt2/gptj; see "
+                   help="int8 weight-streaming decode for the samplers (gpt2/gptj/t5; see "
                         "models/bundle.enable_int8_decode)")
     p.add_argument("--eval_batch_size", type=int, default=8,
                    help="images per validator chunk; samplers with a batched path run once "

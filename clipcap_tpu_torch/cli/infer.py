@@ -12,7 +12,8 @@ against the original text (BLEU, METEOR, ROUGE-L, CIDEr, SPICE) and write
         --clip_checkpoint CLIP.pt --clip_merges bpe_simple_vocab_16e6.txt.gz
 
 CKPT is a directory of clipcap_config.json and consolidated.npz
-(train/checkpoints.py), with a GPT-2 or a GPT-J LM. With
+(train/checkpoints.py), with a GPT-2, a GPT-J or a T5/T0 LM (VOCAB holds
+T5's `tokenizer.json`). With
 `--speculative_draft_checkpoint DRAFT` each image is captioned by
 speculative greedy decode, DRAFT's captioner proposing and CKPT's
 verifying (beam search off). `folder_demo_pixels` is the part below the file
@@ -239,7 +240,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "greedy decoding")
     p.add_argument("--speculative_gamma", type=int, default=4)
     p.add_argument("--int8_decode", action="store_true",
-                   help="int8 weight-streaming decode (gpt2/gptj): int8 weights and KV cache; "
+                   help="int8 weight-streaming decode (gpt2/gptj/t5): int8 weights, and an int8 "
+                        "KV cache for gpt2/gptj; "
                         "tokens can differ from the float path at quantization boundaries")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p

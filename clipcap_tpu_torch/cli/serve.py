@@ -11,9 +11,9 @@ line per image.
     python -m clipcap_tpu_torch.cli.serve --checkpoint_path CKPT \
         --tokenizer_vocab_dir VOCAB --prefixes_npy FEATS.npy --out_jsonl OUT
 
-CKPT is a checkpoint directory (train/checkpoints.py) with a GPT-2 or a
-GPT-J LM, VOCAB its LM's BPE files (GPT-J uses GPT-2's); the server runs
-on the card unless `--device cpu`.
+CKPT is a checkpoint directory (train/checkpoints.py) with a GPT-2, GPT-J
+or T5/T0 LM, VOCAB its LM's tokenizer files (GPT-J uses GPT-2's BPE files,
+T5 a `tokenizer.json`); the server runs on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -113,7 +113,8 @@ def main(argv=None):
                         "sized to it instead of max_new_tokens. Length caps bind through "
                         "the engine's completion logic, so --eos_token_id must be set")
     p.add_argument("--int8_decode", action="store_true",
-                   help="int8 weight-streaming decode (gpt2/gptj): int8 weights and KV ring")
+                   help="int8 weight-streaming decode (gpt2/gptj/t5): int8 weights, and an "
+                        "int8 KV ring for gpt2/gptj")
     p.add_argument("--max_new_tokens", type=int, default=67)
     p.add_argument("--top_p", type=float, default=0.0)
     p.add_argument("--top_k", type=int, default=0)

@@ -22,8 +22,9 @@ port's Int8Linear buffers `q` [out, in] and `s`, and back. GPT-2's int8
 `lm_head` ([D, V]) is padded to the port's multiple-of-8 channels with
 q = 0 and s = 1e-12, what the port's own quantization gives zero rows,
 and sliced back to the vocabulary on the way out. GPT-J's int8 lm_head
-(vocabulary 50400) needs no padding. So the converters read and write what
-`gpt2.quantize_params`, `gptj.quantize_params` and `vit.quantize_params`
+(vocabulary 50400) and T5's (32128 for T0) need no padding. So the
+converters read and write what `gpt2.quantize_params`,
+`gptj.quantize_params`, `t5.quantize_params` and `vit.quantize_params`
 make in either package.
 """
 
@@ -171,8 +172,34 @@ def gptj_state_dict(params: dict) -> StateDict:
     return sd
 
 
+_T5_BLOCKS = {"encoder": ("ln1", "attn", "ln2", "mlp"),
+              "decoder": ("ln1", "self_attn", "ln2", "cross_attn", "ln3", "mlp")}
+
+
+def t5_state_dict(params: dict) -> StateDict:
+    """clipcap_tpu.models.t5 params (float, or t5.quantize_params' int8
+    tree) -> clipcap_tpu_torch.models.t5.T5 (or T5Int8)."""
+    sd = {"shared": np.asarray(params["shared"])}
+    for stack, parts in _T5_BLOCKS.items():
+        p = params[stack]
+        sd[f"{stack}.rel_bias"] = np.asarray(p["rel_bias"])
+        sd[f"{stack}.ln_f.weight"] = np.asarray(p["ln_f"]["g"])
+        blocks = p["blocks"]
+        for i in range(np.asarray(blocks["ln1"]["g"]).shape[0]):
+            for part in parts:
+                name = f"{stack}.blocks.{i}.{part}"
+                if part.startswith("ln"):
+                    sd[f"{name}.weight"] = np.asarray(blocks[part]["g"])[i]
+                else:
+                    for lin, w in blocks[part].items():
+                        sd.update(_lin(f"{name}.{lin}", w, layer=i))
+    if "lm_head" in params:
+        sd.update(_lin("lm_head", params["lm_head"]["w"]))
+    return sd
+
+
 def lm_state_dict(params: dict, lm_type: str = "gpt2") -> StateDict:
-    """The LM converter of `lm_type` (gpt2 or gptj)."""
+    """The LM converter of `lm_type` (gpt2, gptj or t5)."""
     from .lm.registry import family
 
     return family(lm_type).state_dict(params)
@@ -198,7 +225,7 @@ def clip_text_state_dict(params: dict) -> StateDict:
 
 def captioner_state_dict(params: dict, lm_type: str = "gpt2") -> StateDict:
     """clipcap_tpu.models.captioner params {"mapper", "lm", ["visual"]} ->
-    clipcap_tpu_torch.models.captioner.Captioner with a GPT-2 or GPT-J LM."""
+    clipcap_tpu_torch.models.captioner.Captioner with a GPT-2, GPT-J or T5 LM."""
     sd = {f"mapper.{k}": v for k, v in mapper_state_dict(params["mapper"]).items()}
     sd.update({f"lm.{k}": v for k, v in lm_state_dict(params["lm"], lm_type).items()})
     if "visual" in params:
@@ -315,6 +342,29 @@ def gptj_params(sd: StateDict, layers: int) -> dict:
                                "b_out": _unb(sd, blk + "w_out", layers)}}}
 
 
+def t5_params(sd: StateDict, layers: int = None) -> dict:
+    """Inverse of t5_state_dict. `layers` is not read: the encoder and the
+    decoder each count their blocks from the state dict."""
+    params = {"shared": sd["shared"]}
+    for stack, parts in _T5_BLOCKS.items():
+        n = len({k.split(".")[2] for k in sd if k.startswith(f"{stack}.blocks.")})
+        blk = f"{stack}.blocks.{{}}."
+        blocks = {}
+        for part in parts:
+            if part.startswith("ln"):
+                blocks[part] = {"g": np.stack([sd[blk.format(i) + part + ".weight"]
+                                               for i in range(n)])}
+            else:
+                lins = sorted({k[len(blk.format(0) + part) + 1:].split(".")[0]
+                               for k in sd if k.startswith(blk.format(0) + part + ".")})
+                blocks[part] = {lin: _unw(sd, blk + f"{part}.{lin}", n) for lin in lins}
+        params[stack] = {"blocks": blocks, "rel_bias": sd[f"{stack}.rel_bias"],
+                         "ln_f": {"g": sd[f"{stack}.ln_f.weight"]}}
+    if "lm_head.weight" in sd or "lm_head.q" in sd:
+        params["lm_head"] = {"w": _flat_w(sd, "lm_head")}
+    return params
+
+
 def lm_params(sd: StateDict, layers: int, lm_type: str = "gpt2") -> dict:
     """Inverse of lm_state_dict."""
     from .lm.registry import family
@@ -323,7 +373,7 @@ def lm_params(sd: StateDict, layers: int, lm_type: str = "gpt2") -> dict:
 
 
 def captioner_params(model: nn.Module) -> dict:
-    """A port Captioner (GPT-2 or GPT-J LM, by its cfg.lm_type) -> the JAX
+    """A port Captioner (GPT-2, GPT-J or T5 LM, by its cfg.lm_type) -> the JAX
     package's captioner params {"mapper", "lm", ["visual"]}, numpy on the
     host (bf16 as `|V2` records): the inverse of captioner_state_dict."""
     sd = {k: to_numpy(v) for k, v in model.state_dict().items()}
@@ -331,8 +381,9 @@ def captioner_params(model: nn.Module) -> dict:
     def sub(prefix):
         return {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
 
+    lm_layers = len(model.lm.blocks) if hasattr(model.lm, "blocks") else None  # T5: two stacks
     params = {"mapper": mapper_params(sub("mapper"), len(model.mapper.layers)),
-              "lm": lm_params(sub("lm"), len(model.lm.blocks), model.cfg.lm_type)}
+              "lm": lm_params(sub("lm"), lm_layers, model.cfg.lm_type)}
     if model.visual is not None:
         params["visual"] = vit_params(sub("visual"), len(model.visual.blocks))
     return params

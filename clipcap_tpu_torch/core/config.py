@@ -1,7 +1,7 @@
 """Configuration dataclasses of the captioning main path.
 
 The port's own copies of `MapperConfig`, `GPT2Config`, `GPTJConfig`,
-`ViTConfig`, `CLIPTextConfig`, `CaptionerConfig` and `TrainConfig` from
+`T5Config`, `ViTConfig`, `CLIPTextConfig`, `CaptionerConfig` and `TrainConfig` from
 clipcap_tpu/core/config.py, with the same fields,
 defaults and JSON round trip (a test holds the two in step). The port keeps
 its own copies because the JAX package's `core/__init__.py` imports JAX.
@@ -86,6 +86,44 @@ class GPTJConfig(_JsonMixin):
         if name in ("EleutherAI/gpt-j-6B", "gpt-j-6B", "gptj"):
             return cls()
         raise ValueError(f"unknown GPT-J variant {name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config(_JsonMixin):
+    """T5/T0 family (encoder-decoder, RMSNorm, relative position buckets)."""
+
+    vocab_size: int = 32128
+    d_model: int = 512
+    d_kv: int = 64
+    d_ff: int = 2048
+    num_layers: int = 6
+    num_decoder_layers: int = 6
+    num_heads: int = 8
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "relu"  # "relu" (t5) or "gated-gelu" (t5 v1.1 / T0)
+    tie_word_embeddings: bool = True
+
+    @classmethod
+    def variant(cls, name: str) -> "T5Config":
+        """HF presets. "t0-11b" is bigscience/T0, the T5 v1.1 XXL geometry
+        (gated-gelu, untied lm_head, 4096/10240, 64 heads), ~11B
+        parameters: the reference's T0 decoder family (lms/T0.py)."""
+        presets = {
+            "t5-small": dict(),
+            "t5-base": dict(d_model=768, d_ff=3072, num_layers=12,
+                            num_decoder_layers=12, num_heads=12),
+            "t5-large": dict(d_model=1024, d_ff=4096, num_layers=24,
+                             num_decoder_layers=24, num_heads=16),
+            "t0-11b": dict(d_model=4096, d_ff=10240, num_layers=24,
+                           num_decoder_layers=24, num_heads=64,
+                           feed_forward_proj="gated-gelu",
+                           tie_word_embeddings=False),
+        }
+        if name not in presets:
+            raise ValueError(f"unknown T5 variant {name!r}")
+        return cls(**presets[name])
 
 
 @dataclasses.dataclass(frozen=True)

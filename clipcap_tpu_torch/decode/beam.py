@@ -1,5 +1,5 @@
 """Beam search over prefix embeddings, KV-cached (port of
-clipcap_tpu/decode/beam.py, float GPT-2 caches).
+clipcap_tpu/decode/beam.py).
 
 The decode semantics of the reference's generate_beam
 (inference.py:70-148): log-softmax scores, length-normalised selection
@@ -15,8 +15,10 @@ bit-equal logits (JAX beam.py:176-190).
 Selection is plain torch ops, as it is plain XLA in the JAX package: no
 kernel runs here. The f32 operations keep the JAX order (log_softmax of
 logits / temperature, then scores + logp, then / seq_lengths). The host
-reads nothing back inside the loop. The cross-attention cache fields of
-the JAX module come with the T5/BLIP slices.
+reads nothing back inside the loop. A cross-attention cache (T5's encoder
+output and mask bias) is repeated once per beam at the expansion and then
+left alone: every beam of an image reads the same rows, so reordering them
+would change no bit (JAX's `_CROSS_FIELDS`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+#: cross-attention / encoder cache fields, with the axis their batch lives on
+_CROSS_FIELDS = {"cross_k": 1, "cross_v": 1, "cross_bias": 0, "enc_hidden": 0, "enc_bias": 0}
 
 
 def _beam_slabs(cache) -> dict:
@@ -51,9 +57,15 @@ def _reorder_cache_tail(cache, global_source: torch.Tensor, p_len: int):
 
 def _expand_beams(cache, beam_size: int):
     """Replicate each row of a prefilled cache beam_size times on the batch
-    axis (row i*beam + b is image i)."""
-    return cache._replace(**{name: slab.repeat_interleave(beam_size, dim=1)
-                             for name, slab in _beam_slabs(cache).items()})
+    axis (row i*beam + b is image i): the self-attention slabs on their
+    [L, B, ...] axis 1, the cross fields on their own batch axis."""
+    upd = {name: slab.repeat_interleave(beam_size, dim=1)
+           for name, slab in _beam_slabs(cache).items()}
+    for name, axis in _CROSS_FIELDS.items():
+        val = getattr(cache, name, None)
+        if val is not None:
+            upd[name] = val.repeat_interleave(beam_size, dim=axis)
+    return cache._replace(**upd)
 
 
 def _topk_iter(x: torch.Tensor, k: int):

@@ -38,7 +38,8 @@ so the launch stream never stalls inside a chunk.
 Left behind as TPU workarounds: layout pinning, the jitted row gather and
 buffer donation. The sentence-length penalty is rejected (it needs the
 batch-global step counter). Supported LMs: any module with
-`decode_step_ring` and `scatter_refill` (GPT-2 and GPT-J, float and int8).
+`decode_step_ring` and `scatter_refill` (GPT-2, GPT-J and T5, float and
+int8; a T5 refill swaps each request's encoder output in by a row paste).
 """
 
 from __future__ import annotations
@@ -195,8 +196,11 @@ class ServingEngine:
         self._min_len = S.per_row(settings.min_length, b, dev, torch.int64)
         self._use_fused_step = uses_fused_step(settings, dev)
         # dead slots keep stepping until refilled: clamp their position
-        # inside the position table
-        self._pos_limit = int(lm_cfg.n_positions)
+        # inside the position table of an absolute-position model (T5's
+        # relative positions have no table, and no clamp)
+        limit = getattr(lm_cfg, "n_positions", None) or getattr(lm_cfg,
+                                                                 "max_position_embeddings", None)
+        self._pos_limit = None if limit is None else int(limit)
 
     # ---- device steps ---------------------------------------------------------
 
@@ -261,7 +265,8 @@ class ServingEngine:
             step_in = self.lm.embed_tokens(emitted)[:, None, :].to(self.dtype)
             logits, st.cache = self.lm.decode_step_ring(step_in, st.cache, st.pos, st.start)
             st.last_logits = logits.float()
-            st.pos = (st.pos + 1).clamp(max=self._pos_limit - 1)
+            st.pos = st.pos + 1 if self._pos_limit is None else (st.pos + 1).clamp(
+                max=self._pos_limit - 1)
             out.append(torch.where(emit_valid, emitted, -1))
         out += [st.stopped.long(), st.nat_stopped.long()]
         return torch.stack(out).to(torch.int32)
@@ -303,7 +308,7 @@ class ServingEngine:
         """Run init, every chunk length and every refill size once on dummy
         data: the card's libraries, the kernels' build and the allocator
         are then ready before the first request stream."""
-        embed_dim = embed_dim or self.cfg.n_embd
+        embed_dim = embed_dim or self.lm.embedding_size()
         b, dev = self.slots, self.device
         zeros = torch.zeros((b, self.prefix_len, embed_dim), dtype=self.dtype, device=dev)
         caps = torch.full((b,), self.settings.max_new_tokens, dtype=torch.int64, device=dev)

@@ -131,11 +131,12 @@ def _chunk_forward(lm, chunk_emb: torch.Tensor, cache):
     """The (gamma+1)-token verification forward -> (logits [1, T, V], cache).
     An LM marked `chunked_forward` continues its cache in one multi-token
     forward (JAX's `_forward_cached`); the int8 modules, which decode one
-    position per row (JAX's int8 adapters have no `_forward_cached`), take
-    one decode_step per chunk token: the same tokens, but each step streams
-    the whole weights again, so an int8 target cannot beat its own plain
-    greedy decode."""
-    if lm.chunked_forward:
+    position per row, and T5, which has no such attribute (JAX's int8
+    adapters and its T5 have no `_forward_cached`), take one decode_step
+    per chunk token: the same tokens, but each step streams the whole
+    weights again, so such a target cannot beat its own plain greedy
+    decode."""
+    if getattr(lm, "chunked_forward", False):
         return lm.forward_cached(chunk_emb, cache)
     steps = []
     for i in range(chunk_emb.shape[1]):

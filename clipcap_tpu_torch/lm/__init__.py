@@ -1,1 +1,1 @@
-"""Language-model registry (gpt2 and gptj)."""
+"""Language-model registry (gpt2, gptj and t5/t0)."""

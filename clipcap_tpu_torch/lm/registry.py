@@ -1,8 +1,9 @@
-"""Language-model surface (port of clipcap_tpu/lm/registry.py: gpt2, gptj).
+"""Language-model surface (port of clipcap_tpu/lm/registry.py: gpt2, gptj, t5).
 
 An LM of the port is an nn.Module with the protocol the decode engine drives:
 
     embed_tokens(tokens)                 -> [B, T, D]
+    embedding_size()                     -> D
     forward(inputs_embeds, attention_mask=None, logits_slice=None) -> logits
     init_cache(batch, max_len, dtype)    -> cache
     prefill(inputs_embeds, cache)        -> (logits [B, 1, V], cache)
@@ -10,19 +11,22 @@ An LM of the port is an nn.Module with the protocol the decode engine drives:
 
 and the class attribute `chunked_forward`: True where
 `forward_cached(embeds, cache)` runs a multi-token continuation of a
-cache (speculative verification's chunk), False where the LM decodes one
-position per row and the chunk takes one decode_step per token (the int8
-modules, as JAX's int8 adapters have no `_forward_cached`).
+cache (speculative verification's chunk), False or absent where the LM
+decodes one position per row and the chunk takes one decode_step per
+token (the int8 modules and T5, as JAX's int8 adapters and its T5 have
+no `_forward_cached`).
 
-Name aliases follow the reference CLIs (train.py:191-198). T5/T0 comes
-with its own slice (ROADMAP.md item 13).
+Name aliases follow the reference CLIs (train.py:191-198). As in JAX,
+`get_lm_config("t5"/"t0", variant)` gives `T5Config()` (t5-small) whatever
+the variant: a checkpoint's own `lm` payload sets the real geometry
+(cli/loading.py), and `T5Config.variant` names the presets.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from ..core.config import GPT2Config, GPTJConfig
+from ..core.config import GPT2Config, GPTJConfig, T5Config
 
 
 class LMFamily(NamedTuple):
@@ -68,18 +72,22 @@ def _gptj() -> LMFamily:
                     gptj_params, gptj_from_state_dict)
 
 
+def _t5() -> LMFamily:
+    from ..convert import t5_params, t5_state_dict
+    from ..models import t5
+    from ..tools.import_weights import t5_from_state_dict
+
+    return LMFamily(t5.T5, T5Config, t5.quantize_params, t5_state_dict, t5_params,
+                    t5_from_state_dict)
+
+
 # the modules load when a family is first asked for (convert imports this one)
-_FAMILIES = {"gpt2": _gpt2, "gptj": _gptj}
+_FAMILIES = {"gpt2": _gpt2, "gptj": _gptj, "t5": _t5}
 
 
 def family(lm_type: str) -> LMFamily:
-    """The ported family of `lm_type`; T5/T0 raises, naming its ROADMAP item."""
-    t = normalize_lm_type(lm_type)
-    if t not in _FAMILIES:
-        raise NotImplementedError(
-            f"LM family {t!r} is not ported yet: T5/T0 comes with ROADMAP.md item 13; "
-            "the port carries gpt2 and gptj")
-    return _FAMILIES[t]()
+    """The family of `lm_type` (an alias of gpt2, gptj or t5)."""
+    return _FAMILIES[normalize_lm_type(lm_type)]()
 
 
 def get_lm(lm_type: str):
@@ -88,4 +96,7 @@ def get_lm(lm_type: str):
 
 
 def get_lm_config(lm_type: str, variant: str):
-    return family(lm_type).config.variant(variant)
+    """The family's preset `variant`; for t5/t0 the default T5Config
+    whatever the variant, as JAX's registry returns it."""
+    cfg = family(lm_type).config
+    return cfg() if cfg is T5Config else cfg.variant(variant)

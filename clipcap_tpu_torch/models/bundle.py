@@ -59,10 +59,12 @@ class CaptionerBundle:
         return self.model.lm
 
     def enable_int8_decode(self) -> "CaptionerBundle":
-        """Quantize the LM once for int8 decode (models/gpt2.quantize_params
-        or models/gptj.quantize_params): int8 weights with per-output-channel
-        scales and an int8 KV cache. Only `lm_decode` switches. Greedy
-        tokens can differ from the float path at quantization boundaries."""
+        """Quantize the LM once for int8 decode (the family's quantize_params:
+        models/gpt2, models/gptj or models/t5): int8 weights with
+        per-output-channel scales, and an int8 KV cache for GPT-2 and GPT-J
+        (T5's stays float, as in JAX; int8 is what fits T0-11B's 22 GB of
+        bf16 weights in 11.6 GB). Only `lm_decode` switches. Greedy tokens
+        can differ from the float path at quantization boundaries."""
         from ..lm.registry import family
 
         self._int8_lm = family(self.cap_cfg.lm_type).quantize_params(self.model.lm)
@@ -77,12 +79,14 @@ class CaptionerBundle:
         """Continuous-batching engine over this bundle's decode LM, on the
         bundle's device. Drive it with `eng.serve(requests,
         prefix_pool=...)`, where the pool rows are project_prefix outputs.
-        The activation dtype defaults to the decode LM's wte dtype (bf16
-        for the int8 GPT-2; the float model's for the int8 GPT-J, which
-        keeps wte as JAX's quantize_params does)."""
+        The activation dtype defaults to the decode LM's embedding table's
+        (wte, or T5's shared): bf16 for the int8 GPT-2; the float model's
+        for the int8 GPT-J and T5, which keep the table as JAX's
+        quantize_params does."""
         from ..decode.serving import ServingEngine
 
-        kw.setdefault("dtype", self.lm_decode.wte.dtype)
+        lm = self.lm_decode
+        kw.setdefault("dtype", (lm.wte if hasattr(lm, "wte") else lm.shared).dtype)
         kw.setdefault("device", self.device)
         return ServingEngine(self.lm_decode, self.lm_cfg,
                              prefix_len=self.cap_cfg.mapper.prefix_length,

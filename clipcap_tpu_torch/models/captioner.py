@@ -29,13 +29,17 @@ from .vit import ViT
 
 class Captioner(nn.Module):
     def __init__(self, cfg: CaptionerConfig, lm_cfg, *, vit_cfg: Optional[ViTConfig] = None,
-                 device="cuda", dtype=torch.float32, seed: int = 0):
+                 device="cuda", dtype=torch.float32, seed: int = 0,
+                 lm: Optional[nn.Module] = None):
+        """`lm`, when given, is held in place of a freshly drawn LM (a frozen
+        int8 LM under prefix-only training, as JAX's params may hold one)."""
         super().__init__()
         self.cfg = cfg
         self.lm_cfg = lm_cfg
         # distinct seeds per submodule, so each draws its own stream
         self.mapper = Mapper(cfg.mapper, device=device, dtype=dtype, seed=seed)
-        self.lm = get_lm(cfg.lm_type)(lm_cfg, device=device, dtype=dtype, seed=seed + 1)
+        self.lm = lm if lm is not None else get_lm(cfg.lm_type)(lm_cfg, device=device,
+                                                                dtype=dtype, seed=seed + 1)
         self.visual = (ViT(vit_cfg, device=device, dtype=dtype, seed=seed + 2)
                        if vit_cfg is not None else None)
 
@@ -48,9 +52,13 @@ class Captioner(nn.Module):
 
     def forward(self, tokens: torch.Tensor, prefix: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, logits_slice=None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, lm_apply=None) -> torch.Tensor:
         """Logits [B, P+T, V] (or the logits_slice positions of them);
-        remat checkpoints the LM's blocks, as in JAX (the mapper is not)."""
+        remat checkpoints the LM's blocks, as in JAX (the mapper is not).
+        lm_apply overrides the LM's forward: called as lm_apply(embeds,
+        attention_mask=..., logits_slice=...), e.g. GPTJInt8.apply_q8, the
+        W8A16 forward of a frozen int8 LM (JAX's `lm_apply`, which bakes in
+        its own remat)."""
         embedding_text = self.lm.embed_tokens(tokens)
         prefix_proj = self.project_prefix(prefix).to(embedding_text.dtype)
         embedding_cat = torch.cat([prefix_proj, embedding_text], dim=1)
@@ -59,24 +67,28 @@ class Captioner(nn.Module):
         full_mask = torch.cat(
             [torch.ones(prefix_proj.shape[:-1], dtype=mask.dtype, device=mask.device), mask],
             dim=1)
+        if lm_apply is not None:
+            return lm_apply(embedding_cat, attention_mask=full_mask, logits_slice=logits_slice)
         return self.lm(embedding_cat, attention_mask=full_mask, logits_slice=logits_slice,
                        remat=remat)
 
     def caption_loss(self, tokens: torch.Tensor, prefix: torch.Tensor,
-                     remat: bool = False) -> Tuple[torch.Tensor, dict]:
+                     remat: bool = False, lm_apply=None) -> Tuple[torch.Tensor, dict]:
         """The training_step CE loss (reference model.py:203-209) of tokens
         [B, T] padded with -1: the mask is tokens >= 0, negative ids become
         0, and the head runs on the positions that predict the tokens only
         (prefix_length-1 .. total-1). CE is logsumexp minus the picked
         logit in f32; ignore_index is 0, so the zeroed padding and genuine
         id-0 tokens drop out alike (a reference quirk), over a denominator
-        of max(valid, 1). Returns (loss, {"loss", "valid_tokens"})."""
+        of max(valid, 1); lm_apply as in forward. Returns (loss, {"loss",
+        "valid_tokens"})."""
         mask = tokens >= 0
         tokens = torch.where(mask, tokens, torch.zeros((), dtype=tokens.dtype,
                                                        device=tokens.device))
         p = self.cfg.mapper.prefix_length
         total = p + tokens.shape[1]
-        logits = self(tokens, prefix, mask, logits_slice=(p - 1, total - 1), remat=remat)
+        logits = self(tokens, prefix, mask, logits_slice=(p - 1, total - 1), remat=remat,
+                      lm_apply=lm_apply)
         logits_f = logits.float().reshape(-1, logits.shape[-1])
         labels = tokens.reshape(-1).long()
         nll = torch.logsumexp(logits_f, dim=-1) - logits_f.gather(1, labels[:, None])[:, 0]

@@ -98,6 +98,9 @@ class GPT2(nn.Module):
         out-of-range ids clamped as JAX's gather clamps them."""
         return gather_rows(self.wte, tokens)
 
+    def embedding_size(self) -> int:
+        return self.wte.shape[1]
+
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm and the tied lm_head."""
         return F.linear(self.ln_f(x), self.wte)
@@ -327,6 +330,9 @@ class GPT2Int8(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return gather_rows(self.wte, tokens)
+
+    def embedding_size(self) -> int:
+        return self.wte.shape[1]
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm and the int8 lm_head -> f32 logits over the vocabulary."""

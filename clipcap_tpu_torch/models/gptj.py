@@ -326,6 +326,9 @@ class GPTJInt8(nn.Module):
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return gather_rows(self.wte, tokens)
 
+    def embedding_size(self) -> int:
+        return self.wte.shape[1]
+
     def head(self, x: torch.Tensor) -> torch.Tensor:
         return self.lm_head(self.ln_f(x), out_dtype=torch.float32)
 

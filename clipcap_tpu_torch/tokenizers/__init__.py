@@ -1,6 +1,8 @@
-"""GPT-2 byte-level BPE and CLIP's BPE; `regex` is imported only when a
-tokenizer is built."""
+"""GPT-2 byte-level BPE, CLIP's BPE and T5's `tokenizer.json`; `regex` and
+`tokenizers` are imported only when a tokenizer is built."""
 
-from .api import GPT2TokenizerWrapper, GPTJTokenizerWrapper, create_tokenizer
+from .api import (GPT2TokenizerWrapper, GPTJTokenizerWrapper, T5TokenizerWrapper,
+                  create_tokenizer)
 
-__all__ = ["GPT2TokenizerWrapper", "GPTJTokenizerWrapper", "create_tokenizer"]
+__all__ = ["GPT2TokenizerWrapper", "GPTJTokenizerWrapper", "T5TokenizerWrapper",
+           "create_tokenizer"]

@@ -1,16 +1,19 @@
-"""GPT-2 and GPT-J tokenizer wrappers with the reference's `encode_text`
-semantics (port of GPT2TokenizerWrapper and GPTJTokenizerWrapper,
+"""GPT-2, GPT-J and T5 tokenizer wrappers with the reference's
+`encode_text` semantics (port of GPT2TokenizerWrapper,
+GPTJTokenizerWrapper, T5TokenizerWrapper and create_tokenizer,
 clipcap_tpu/tokenizers/api.py).
 
 encode_text (reference lms/GPT2.py:28-44): a given max_token_length is
 extended by one per requested special token before truncation, then BOS is
 prepended / EOS appended, so a capped caption keeps its specials.
 bos == eos == the endoftext token. GPT-J's wrapper truncates only unless
-asked for the specials. The T5 wrapper comes with its own slice.
+asked for the specials. T5's truncates only (reference lms/T0.py:26-30)
+and, as JAX's, takes no add_bos/add_eos.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 from .bpe import ByteLevelBPE
@@ -77,16 +80,58 @@ class GPTJTokenizerWrapper(GPT2TokenizerWrapper):
     raises TypeError on a GPT-J checkpoint (ROADMAP.md §3)."""
 
 
+class T5TokenizerWrapper:
+    """T5/T0 tokenizer backed by a local HF `tokenizer.json` (SentencePiece
+    vocabularies are pretrained files; pass the directory holding it, and
+    nothing is downloaded). The decoder starts from the pad id, so
+    bos_token_id is pad's. encode_text truncates only: like JAX's, it takes
+    no add_bos/add_eos, so the COCO validator's validation loss, which asks
+    for them, raises TypeError on a T5 checkpoint in both packages."""
+
+    def __init__(self, hf_tokenizer):
+        self.tk = hf_tokenizer
+        self.eos_token_id = self.tk.token_to_id("</s>")
+        self.pad_token_id = self.tk.token_to_id("<pad>")
+        self.bos_token_id = self.pad_token_id
+        specials = [self.eos_token_id, self.pad_token_id, self.tk.token_to_id("<unk>")]
+        self.all_special_ids = sorted({s for s in specials if s is not None})
+
+    @classmethod
+    def create(cls, vocab_dir: str) -> "T5TokenizerWrapper":
+        from tokenizers import Tokenizer
+
+        path = Path(vocab_dir) / "tokenizer.json"
+        if not path.exists():
+            raise FileNotFoundError(
+                f"T5 tokenizer needs a local {path} (SentencePiece assets are pretrained "
+                "files; nothing is downloaded)")
+        return cls(Tokenizer.from_file(str(path)))
+
+    def encode(self, text: str) -> List[int]:
+        return self.tk.encode(text).ids
+
+    def encode_text(self, text: str, max_token_length: Optional[int] = None) -> List[int]:
+        tokens = self.encode(text)
+        if max_token_length is not None:
+            tokens = tokens[:max_token_length]
+        return tokens
+
+    def decode_tokens(self, tokens: Sequence[int]) -> str:
+        return self.tk.decode([int(t) for t in tokens])
+
+    @property
+    def vocab_size(self) -> int:
+        return self.tk.get_vocab_size()
+
+
 def create_tokenizer(tokenizer_model_type: str, vocab_dir: str):
-    """Type string -> tokenizer wrapper (reference create_dataset.py:242-255);
-    T5 comes with its own slice (ROADMAP.md item 13)."""
+    """Type string -> tokenizer wrapper (reference create_dataset.py:242-255)."""
     t = tokenizer_model_type.lower()
     if t == "gpt2":
         return GPT2TokenizerWrapper.create(vocab_dir)
     if t in ("gptj", "gpt-j"):
         return GPTJTokenizerWrapper.create(vocab_dir)
     if t in ("t5", "t0"):
-        raise NotImplementedError(f"the {tokenizer_model_type!r} tokenizer is not ported yet "
-                                  "(ROADMAP.md item 13, T5/T0)")
+        return T5TokenizerWrapper.create(vocab_dir)
     raise ValueError(
         f"invalid tokenizer model type: {tokenizer_model_type!r} (expected gpt2/gpt-j/t0/t5)")

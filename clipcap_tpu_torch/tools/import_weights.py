@@ -1,5 +1,5 @@
-"""Torch checkpoints -> the port's modules (port of the GPT-2, GPT-J, mapper
-and CLIP converters of clipcap_tpu/tools/import_weights.py).
+"""Torch checkpoints -> the port's modules (port of the GPT-2, GPT-J, T5,
+mapper and CLIP converters of clipcap_tpu/tools/import_weights.py).
 
 The reference loads its models from torch checkpoints (HF `from_pretrained`
 at lms/GPT2.py:9, `clip.load` at train.py:206). Each converter here maps a
@@ -11,7 +11,7 @@ ready for `convert.load`: no JAX layout in between. Inputs are plain
 Layouts: torch nn.Linear stores [out, in], as the port's modules do, and is
 copied through; HF GPT-2's Conv1D stores [in, out] and is transposed; a
 patch Conv2d [D, C, P, P] becomes the per-patch linear [D, C*P*P]. The
-T5, BLIP and ResNet converters come with their ROADMAP.md items.
+BLIP and ResNet converters come with their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -104,6 +104,35 @@ def gptj_from_state_dict(sd: Mapping, cfg) -> StateDict:
                              ("wo", "out_proj"))]),
                **_linear("w_in", h + "mlp.fc_in", sd), **_linear("w_out", h + "mlp.fc_out", sd)}
         out |= _prefixed(f"blocks.{i}", blk)
+    return out
+
+
+def t5_from_state_dict(sd: Mapping, cfg) -> StateDict:
+    """HF T5ForConditionalGeneration state dict -> models.t5.T5. Each stack's
+    relative-bias table is its block 0's; the lm_head is read when the
+    embeddings are untied and the state dict has one."""
+    out = {"shared": _np(sd["shared.weight"])}
+    mlp = ([("wi_0", "wi_0"), ("wi_1", "wi_1"), ("wo", "wo")]
+           if cfg.feed_forward_proj == "gated-gelu" else [("wi_0", "wi"), ("wo", "wo")])
+    stacks = {"encoder": (cfg.num_layers, [("attn", "SelfAttention")]),
+              "decoder": (cfg.num_decoder_layers, [("self_attn", "SelfAttention"),
+                                                   ("cross_attn", "EncDecAttention")])}
+    for stack, (n, attns) in stacks.items():
+        out[f"{stack}.rel_bias"] = _np(
+            sd[f"{stack}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"])
+        out[f"{stack}.ln_f.weight"] = _np(sd[f"{stack}.final_layer_norm.weight"])
+        for i in range(n):
+            dst, src = f"{stack}.blocks.{i}", f"{stack}.block.{i}.layer"
+            for j, (name, hf) in enumerate(attns):
+                out[f"{dst}.ln{j + 1}.weight"] = _np(sd[f"{src}.{j}.layer_norm.weight"])
+                out.update(_copy(sd, [(f"{dst}.{name}.{p}.weight", f"{src}.{j}.{hf}.{h}.weight")
+                                      for p, h in zip(("wq", "wk", "wv", "wo"), "qkvo")]))
+            j = len(attns)
+            out[f"{dst}.ln{j + 1}.weight"] = _np(sd[f"{src}.{j}.layer_norm.weight"])
+            out.update(_copy(sd, [(f"{dst}.mlp.{p}.weight", f"{src}.{j}.DenseReluDense.{h}.weight")
+                                  for p, h in mlp]))
+    if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
+        out["lm_head.weight"] = _np(sd["lm_head.weight"])
     return out
 
 

@@ -23,7 +23,13 @@ The compute policy is JAX's:
 - The frozen encoder runs under torch.no_grad (JAX's stop_gradient);
   train_visual_encoder differentiates through it, K1's backward included.
 - Gradients are taken for the trainable parameters only; the global norm
-  and the optimizer see those alone (frozen leaves would add zeros).
+  and the optimizer see those alone (frozen leaves would add zeros). A
+  frozen LM may hold non-float tensors (a GPTJInt8's int8 weights, driven
+  through `lm_apply=lm.apply_q8`): they are buffers, so they never reach
+  autograd or the optimizer, as JAX's partitioned compute_grads keeps
+  non-float frozen leaves out of value_and_grad. With bf16_compute their
+  float buffers (the scales, the biases) are stored in bf16 like every
+  frozen float leaf of JAX's tree.
 - Gradient accumulation (reference acc_grad_batches, train.py:93,288):
   the batch carries a leading [A] axis, and grads and loss are the mean
   over the micro-batches.
@@ -67,6 +73,10 @@ def create_train_state(seed: int, cap_cfg: CaptionerConfig, lm_cfg: Any,
             for name, p in model.named_parameters():
                 if not mask[name] and p.is_floating_point():
                     p.data = p.data.to(torch.bfloat16)
+            for mod in model.modules():  # buffers are frozen leaves too (Int8Linear's)
+                for name, b in mod.named_buffers(recurse=False):
+                    if b.is_floating_point():
+                        setattr(mod, name, b.to(torch.bfloat16))
     tx = make_optimizer(lr=train_cfg.optimizer_lr,
                         warmup_steps=train_cfg.scheduler_warmup_steps,
                         total_steps=train_cfg.total_steps,
@@ -86,8 +96,8 @@ class _CaptionLoss(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, tokens, prefix, remat: bool):
-        return self.model.caption_loss(tokens, prefix, remat=remat)
+    def forward(self, tokens, prefix, remat: bool, lm_apply=None):
+        return self.model.caption_loss(tokens, prefix, remat=remat, lm_apply=lm_apply)
 
 
 def forward_params(model: Captioner, mask: Dict[str, bool],
@@ -123,11 +133,12 @@ def encode_pixels(model: Captioner, fwd: Dict[str, torch.Tensor], pixels: torch.
 
 def caption_loss(model: Captioner, fwd: Dict[str, torch.Tensor], mb: dict,
                  cap_cfg: CaptionerConfig, train_cfg: TrainConfig,
-                 visual_cfg=None) -> torch.Tensor:
+                 visual_cfg=None, lm_apply=None) -> torch.Tensor:
     """The micro-batch's CE loss with the parameters `fwd`
     (forward_params): the visual features (from `mb["prefix"]`, or encoded
     from `mb["pixels"]`) cast to bf16 under bf16_compute, then
-    Captioner.caption_loss with the LM's blocks checkpointed under remat."""
+    Captioner.caption_loss with the LM's blocks checkpointed under remat,
+    or with `lm_apply` in place of the LM's forward."""
     if "prefix" in mb:
         prefix = mb["prefix"]
     else:
@@ -135,12 +146,12 @@ def caption_loss(model: Captioner, fwd: Dict[str, torch.Tensor], mb: dict,
     prefix = prefix.to(torch.bfloat16) if train_cfg.bf16_compute else prefix
     lm_fwd = {f"model.{n}": t for n, t in fwd.items() if not n.startswith("visual.")}
     loss, _ = torch.func.functional_call(_CaptionLoss(model), lm_fwd,
-                                         (mb["tokens"], prefix, train_cfg.remat))
+                                         (mb["tokens"], prefix, train_cfg.remat, lm_apply))
     return loss
 
 
 def compute_grads(model: Captioner, batch: dict, names: List[str], cap_cfg: CaptionerConfig,
-                  train_cfg: TrainConfig, visual_cfg=None
+                  train_cfg: TrainConfig, visual_cfg=None, lm_apply=None
                   ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """(loss, the gradients of the parameters `names`, those parameters):
     the mean over the micro-batches of the [A] axis with
@@ -154,7 +165,7 @@ def compute_grads(model: Captioner, batch: dict, names: List[str], cap_cfg: Capt
     grads, loss_sum = None, None
     for mb in micro:
         fwd = forward_params(model, mask, train_cfg.bf16_compute)
-        loss = caption_loss(model, fwd, mb, cap_cfg, train_cfg, visual_cfg)
+        loss = caption_loss(model, fwd, mb, cap_cfg, train_cfg, visual_cfg, lm_apply)
         g = torch.autograd.grad(loss, diff, allow_unused=True)
         g = [torch.zeros_like(p) if x is None else x for p, x in zip(diff, g)]
         loss = loss.detach()
@@ -170,7 +181,7 @@ def compute_grads(model: Captioner, batch: dict, names: List[str], cap_cfg: Capt
 
 
 def make_train_step(cap_cfg: CaptionerConfig, lm_cfg: Any, train_cfg: TrainConfig,
-                    tx: AdamW, visual_cfg: Any = None):
+                    tx: AdamW, visual_cfg: Any = None, lm_apply=None):
     """Build the (state, batch) -> (state, metrics) function.
 
     batch = {"tokens": int [B, T] (-1 padded)} plus either
@@ -181,11 +192,13 @@ def make_train_step(cap_cfg: CaptionerConfig, lm_cfg: Any, train_cfg: TrainConfi
     With accumulate_grad_batches > 1, every array carries a leading [A]
     axis. Arrays are tensors on the model's device. The parameters and the
     moments are updated in place; the returned state holds the new
-    AutoClip ring and step, and the metrics are device tensors."""
+    AutoClip ring and step, and the metrics are device tensors. lm_apply
+    overrides the LM's forward (Captioner.forward), e.g. the model's own
+    `lm.apply_q8` for a frozen GPTJInt8 (JAX's lm_apply)."""
 
     def train_step(state: TrainState, batch: dict) -> Tuple[TrainState, dict]:
         loss, grads, params = compute_grads(state.model, batch, tx.names, cap_cfg, train_cfg,
-                                            visual_cfg)
+                                            visual_cfg, lm_apply)
         if train_cfg.gradient_clip_val < 0:
             grads, ac_state, clip_metrics = autoclip_update(
                 state.autoclip, grads, train_cfg.autoclip_percentile)

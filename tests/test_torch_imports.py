@@ -40,6 +40,9 @@ TRAIN_MODULES = ["clipcap_tpu_torch.train.autoclip", "clipcap_tpu_torch.train.op
 
 # GPT-J (float, int8, ring) and speculative decoding
 GPTJ_MODULES = ["clipcap_tpu_torch.models.gptj", "clipcap_tpu_torch.decode.speculative"]
+# T5/T0 (float, int8, ring), its tokenizer and its LM family
+T5_MODULES = ["clipcap_tpu_torch.models.t5", "clipcap_tpu_torch.tokenizers.api",
+              "clipcap_tpu_torch.lm.registry"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -70,12 +73,12 @@ def test_import_pulls_in_no_jax_triton_or_jax_package():
         assert f"'{name}'" in out.stdout, name
 
 
-# every module imports with jax, PIL, regex and transformers unimportable:
-# the port imports PIL and regex inside the functions that need them, and
-# transformers never
+# every module imports with jax, PIL, regex, tokenizers and transformers
+# unimportable: the port imports PIL, regex and tokenizers inside the
+# functions that need them, and transformers never
 _IMPORT_ALL_BLOCKED = """
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "PIL", "regex", "transformers", "clipcap_tpu")
+BLOCKED = ("jax", "jaxlib", "PIL", "regex", "tokenizers", "transformers", "clipcap_tpu")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -91,7 +94,7 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES):
+                 + GPTJ_MODULES + T5_MODULES):
         assert f"'{name}'" in out.stdout, name
 
 
@@ -102,6 +105,7 @@ INT8_MODULES = {"clipcap_tpu_torch.ops.quant": ["Int8Linear", "int8_linear", "qu
                 "clipcap_tpu_torch.models.gpt2": ["GPT2Int8", "Int8KVCache", "Int8BeamCache",
                                                   "quantize_params"],
                 "clipcap_tpu_torch.models.gptj": ["GPTJInt8", "quantize_params"],
+                "clipcap_tpu_torch.models.t5": ["T5Int8", "quantize_params"],
                 "clipcap_tpu_torch.models.vit": ["quantize_params"],
                 "clipcap_tpu_torch.models.bundle": ["CaptionerBundle"],
                 "clipcap_tpu_torch.decode.beam": ["beam_search_batched"],
@@ -135,18 +139,18 @@ def test_int8_modules_import_without_jax_or_cuda():
 
 def test_source_has_no_jax_or_jax_package_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|clipcap_tpu)(\.|\s|$)", re.M)
-    top = re.compile(r"^(import|from)\s+(PIL|regex|transformers)(\.|\s|$)", re.M)
+    top = re.compile(r"^(import|from)\s+(PIL|regex|tokenizers|transformers)(\.|\s|$)", re.M)
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES):
+                 + GPTJ_MODULES + T5_MODULES):
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
         text = path.read_text()
         for m in pat.finditer(text):
             hits.append(f"{path.relative_to(ROOT)}: {m.group(0).strip()}")
-        # PIL and regex only inside functions; transformers nowhere
+        # PIL, regex and tokenizers only inside functions; transformers nowhere
         for m in top.finditer(text):
             hits.append(f"{path.relative_to(ROOT)} at module level: {m.group(0).strip()}")
         if re.search(r"^\s*(import|from)\s+transformers", text, re.M):
@@ -154,7 +158,8 @@ def test_source_has_no_jax_or_jax_package_import():
     assert hits == []
 
 
-@pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "GPTJConfig", "ViTConfig",
+@pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "GPTJConfig", "T5Config",
+                                  "ViTConfig",
                                   "CaptionerConfig", "CLIPTextConfig", "TrainConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     a, b = getattr(jax_config, name), getattr(torch_config, name)
@@ -175,6 +180,12 @@ def test_gpt2_variants_match_jax(variant):
 def test_gptj_variants_match_jax(variant):
     assert (dataclasses.asdict(jax_config.GPTJConfig.variant(variant))
             == dataclasses.asdict(torch_config.GPTJConfig.variant(variant)))
+
+
+@pytest.mark.parametrize("variant", ["t5-small", "t5-base", "t5-large", "t0-11b"])
+def test_t5_variants_match_jax(variant):
+    assert (dataclasses.asdict(jax_config.T5Config.variant(variant))
+            == dataclasses.asdict(torch_config.T5Config.variant(variant)))
 
 
 @pytest.mark.parametrize("variant", ["ViT-B/32", "ViT-B/16", "ViT-L/14", "ViT-L/14@336px"])

@@ -47,6 +47,7 @@ from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
 from clipcap_tpu_torch.models.bundle import CaptionerBundle
 from clipcap_tpu_torch.models.gpt2 import GPT2Int8
 from clipcap_tpu_torch.models.gptj import GPTJInt8
+from clipcap_tpu_torch.models.t5 import T5Int8
 from clipcap_tpu_torch.ops.kernels import fused_attention as FA
 from clipcap_tpu_torch.ops.kernels import fused_sampler as FS
 
@@ -152,10 +153,10 @@ def test_enable_int8_decode_switches_only_the_decode_surface(bundles):
     eng = port.make_serving_engine(TE.GenerationSettings(max_new_tokens=4, greedy=True),
                                    slots=2)
     assert eng.lm is port.lm_decode and eng.dtype == torch.bfloat16
-    # GPT-J's int8 module enables too, its leaves JAX's enable_int8_decode's
-    # (JAX quantizes there under jit, where XLA multiplies by 1/127 and the
-    # port divides, as JAX's eager quantize_params does: a scale may differ
-    # by an ulp); T5's still raises, naming its ROADMAP item
+    # GPT-J's and T5's int8 modules enable too, their leaves JAX's
+    # enable_int8_decode's (JAX quantizes there under jit, where XLA
+    # multiplies by 1/127 and the port divides, as JAX's eager
+    # quantize_params does: a scale may differ by an ulp)
     jlm = dict(vocab_size=61, n_positions=64, n_embd=32, n_layer=2, n_head=4, rotary_dim=8)
     cap_t = TC.CaptionerConfig(lm_type="gptj", mapper=TC.MapperConfig(**MAPPER))
     gptj = CaptionerBundle.create(cap_t, TC.GPTJConfig(**jlm), Tok(), seed=3, device="cpu")
@@ -174,10 +175,27 @@ def test_enable_int8_decode_switches_only_the_decode_surface(bundles):
             np.testing.assert_allclose(got[k], want[k], rtol=2.5e-7, atol=0, err_msg=k)
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    t5 = CaptionerBundle(port.model, dataclasses.replace(port.cap_cfg, lm_type="t5"),
-                         port.lm_cfg, port.tokenizer, port.vit_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t5.enable_int8_decode()
+    tlm = dict(vocab_size=61, d_model=32, d_kv=8, d_ff=48, num_layers=2, num_decoder_layers=2,
+               num_heads=4, feed_forward_proj="gated-gelu", tie_word_embeddings=False)
+    cap_5 = TC.CaptionerConfig(lm_type="t5", mapper=TC.MapperConfig(**MAPPER))
+    t5 = CaptionerBundle.create(cap_5, TC.T5Config(**tlm), Tok(), seed=4, device="cpu")
+    jt5 = JaxBundle(params=jax.tree_util.tree_map(jnp.asarray,
+                                                  convert.captioner_params(t5.model)),
+                    cap_cfg=JC.CaptionerConfig(lm_type="t5", mapper=JC.MapperConfig(**MAPPER)),
+                    lm_cfg=JC.T5Config(**tlm), tokenizer=Tok())
+    t5.enable_int8_decode()
+    jt5.enable_int8_decode()
+    assert isinstance(t5.lm_decode, T5Int8) and t5.lm is t5.model.lm
+    want = convert.t5_state_dict(jax.tree_util.tree_map(np.asarray, jt5.lm_decode_params))
+    got = {k: convert.to_numpy(v) for k, v in t5.lm_decode.state_dict().items()}
+    assert sorted(got) == sorted(want)
+    for k in got:
+        if k.endswith(".s"):
+            np.testing.assert_allclose(got[k], want[k], rtol=2.5e-7, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    eng = t5.make_serving_engine(TE.GenerationSettings(max_new_tokens=4, greedy=True), slots=2)
+    assert eng.lm is t5.lm_decode and eng.dtype == torch.float32  # T5's table stays f32
 
 
 def _prompts(n: int, seed: int) -> np.ndarray:

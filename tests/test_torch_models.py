@@ -188,12 +188,15 @@ def test_convert_rejects_mismatched_params():
 
 
 def test_registry_is_gpt2_only():
-    """The registry resolves gpt2 and, since GPT-J was ported, gptj (the
-    name stays from when gpt2 was all it had); t5 still raises, naming its
-    ROADMAP item, and an unknown family is refused."""
+    """The registry resolves every family JAX's does (the name stays from
+    when gpt2 was all it had): gpt2, gptj, and t5/t0, each with its
+    converters, quantizer and HF importer; t5/t0's config is the default
+    T5Config whatever the variant, as JAX's registry gives it; an unknown
+    family is refused."""
     from clipcap_tpu.lm import registry as jax_registry
     from clipcap_tpu_torch.lm import registry
     from clipcap_tpu_torch.models.gptj import GPTJ
+    from clipcap_tpu_torch.models.t5 import T5
 
     assert registry.get_lm("GPT2") is GPT2
     assert registry.get_lm_config("gpt2", "gpt2-xl").n_embd == 1600
@@ -201,20 +204,22 @@ def test_registry_is_gpt2_only():
         assert registry.get_lm(name) is GPTJ
         assert (dataclasses.asdict(registry.get_lm_config(name, "EleutherAI/gpt-j-6B"))
                 == dataclasses.asdict(jax_registry.get_lm_config(name, "EleutherAI/gpt-j-6B")))
+    for name in ("t5", "t0", "T0"):
+        assert registry.get_lm(name) is T5
+        for variant in ("t0-11b", "bigscience/T0pp", "gpt2"):
+            got = registry.get_lm_config(name, variant)
+            assert isinstance(got, TC.T5Config) and got == TC.T5Config()
+            assert dataclasses.asdict(got) == dataclasses.asdict(
+                jax_registry.get_lm_config(name, variant))
     from clipcap_tpu_torch import convert
-    from clipcap_tpu_torch.models import gpt2, gptj
+    from clipcap_tpu_torch.models import gpt2, gptj, t5
     from clipcap_tpu_torch.tools import import_weights
 
-    for name, mod in (("gpt2", gpt2), ("gpt-j", gptj)):
+    for name, mod in (("gpt2", gpt2), ("gpt-j", gptj), ("t0", t5)):
         fam, t = registry.family(name), registry.normalize_lm_type(name)
         assert fam.quantize_params is mod.quantize_params
         assert fam.state_dict is getattr(convert, f"{t}_state_dict")
         assert fam.params is getattr(convert, f"{t}_params")
         assert fam.from_hf is getattr(import_weights, f"{t}_from_state_dict")
-    for name in ("t5", "t0"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            registry.get_lm(name)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            registry.family(name)
     with pytest.raises(ValueError):
         registry.get_lm("bert")
