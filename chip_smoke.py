@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning, serving, evaluation and training
-paths on one NVIDIA GPU.
+"""Drive the PyTorch port's captioning, serving, evaluation, preprocessing
+and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--xl_layers N] [--gptj_layers N]
 
@@ -110,7 +110,24 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    cli.serve on a 2 + 2-layer T0 checkpoint with a tokenizer.json that
    the `tokenizers` package writes; each figure as a JSON line when it is
    measured;
-12. prints one JSON line of kernels, the card line, and last
+12. drives dataset preprocessing (phase (l), after (g), before (i)):
+   writes 2,048 seeded JPEGs (200-640 px, quality 90) with 5-30-word
+   captions in two webdataset tars, a GPT-2 vocabulary and OpenAI-layout
+   ViT-B/32 and ViT-L/14 state dicts; (l1) times the host's JPEG decode
+   alone (native libjpeg at 1 and all cores, PIL beside it) and stages
+   the pixels on the card through data/pipeline.device_prefetch; (l2) times the
+   encoders alone on uint8 pixels already on the card (ViT-B/32 f32 and
+   int8 at batch 256 and 1024, ViT-L/14 at 256; K1 once a layer per
+   encode); (l3) runs `python -m clipcap_tpu_torch.tools.preprocess`'s
+   main end to end from the tars (ViT-B/32 f32 at 256 and 1024, int8 at
+   1024, ViT-L/14 at 256 over 512 images) with the launch counters set to
+   0 just before each run and read just after, and profiles a rerun for
+   the device's busy share; checks both shard readers' batches equal, the
+   first 64 token rows equal a CPU run's and their prefixes within 1e-3 of
+   it, the int8 prefixes within (i5)'s cosine bound of the f32 ones; and
+   holds K1 against its plain version at the encoders' shapes
+   [1024, 50, 12, 64], [256, 50, 12, 64] and [256, 257, 16, 64] f32;
+13. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -3574,6 +3591,326 @@ def t5_path(torch, counters, FS, S, card: str, work: Path) -> tuple:
                                           for name in k234})
 
 
+# --- 12. the preprocessing path (phase (l)) ------------------------------------------
+
+PREP_IMAGES, PREP_L14_IMAGES, PREP_CPU_IMAGES = 2048, 512, 64
+PREP_BATCHES = (256, 1024)  # BASELINE config #5 runs 1024, the CLI's default is 256
+PREP_SHARD = 1000  # shard_size: two shards of 2048 images at either batch
+INT8_MIN_COSINE = 0.995  # (i5)'s bound: the int8 encoder against the float one
+# the attention shapes [B, T, H, dh] the encoders hand K1 in phase (l)
+K1_PREP_SHAPES = [(1024, 50, 12, 64), (256, 50, 12, 64), (256, 257, 16, 64)]
+
+
+def prep_sample(seed: int, i: int) -> tuple:
+    """Sample i of a seeded webdataset: a JPEG of sides 200-640 px at quality
+    90 (a smooth colour field with noise, which compresses as photos do) and
+    a 5-30-word caption."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng((seed, i))
+    w, h = (int(v) for v in rng.integers(200, 641, size=2))
+    small = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3), dtype=np.uint8)
+    base = np.asarray(Image.fromarray(small).resize((w, h), Image.Resampling.BICUBIC), np.int16)
+    img = np.clip(base + rng.integers(-12, 13, (h, w, 3), dtype=np.int16), 0, 255)
+    buf = io.BytesIO()
+    Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG", quality=90)
+    words = rng.choice(CAPTION_WORDS, size=int(rng.integers(5, 31)))
+    return buf.getvalue(), " ".join(words) + "."
+
+
+def write_tar(path: Path, samples, start: int = 0) -> None:
+    """A webdataset tar: members {key}.jpg and {key}.txt per sample."""
+    import io
+    import tarfile
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with tarfile.open(path, "w") as tf:
+        for i, (jpg, txt) in enumerate(samples, start):
+            for ext, data in (("jpg", jpg), ("txt", txt.encode())):
+                info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+
+
+def check_attention_preprocess(torch, FA) -> list:
+    """K1 against its plain version at the shapes of phase (l)'s encoders
+    (f32 views of one packed qkv projection), with the device times of the
+    kernel, the plain version and SDPA beside the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = []
+    for b, t, h, dh in K1_PREP_SHAPES:
+        q, k, v = packed_qkv(torch, gen, b, t, h, dh, torch.float32)
+        got = FA.fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = assert_close(torch, got, FA.fused_attention_plain(
+            q.contiguous(), k.contiguous(), v.contiguous()), *K1_TOL["float32"],
+            f"K1 packed qkv B={b} T={t} H={h} dh={dh} float32")
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)))
+
+        # SDPA's error against the plain version, beside the kernel's: its f32
+        # path may run on TF32 tensor cores, where K1 runs 3xTF32
+        library_err = max_abs(sdpa().transpose(1, 2), FA.fused_attention_plain(q, k, v))
+        del got
+        # the kernel's device time per launch (the profiler's events of its
+        # name), and CUDA events over many calls for it, the plain version and
+        # SDPA: a summed profile of a call here once held one call's kernels of
+        # five (SDPA's sum was a fifth of its CUDA-event time)
+        ms = device_ms(torch, lambda: FA.fused_attention(q, k, v), kernel="attn_kernel")
+        wall_ms = time_ms(torch, lambda: FA.fused_attention(q, k, v), 10)
+        plain_ms = time_ms(torch, lambda: FA.fused_attention_plain(q, k, v), 3)
+        library_ms = time_ms(torch, sdpa, 10)
+        bound_ms, bound_by = attention_bound(b, t, h, dh, "f32")
+        say(f"K1 B={b} T={t} H={h} dh={dh} f32 packed qkv (phase (l)'s encoders): max abs err "
+            f"{err:.3e} (atol {K1_TOL['float32'][0]}, rtol {K1_TOL['float32'][1]}; SDPA's "
+            f"{library_err:.3e}); kernel {ms:.4f} device ms ({wall_ms:.4f} by CUDA events); "
+            f"by CUDA events: plain {plain_ms:.4f}, SDPA {library_ms:.4f}; bound "
+            f"{bound_ms:.4f} ({bound_by})")
+        out.append(dict(shape=[b, t, h, dh], max_abs_err=err, ms=ms, wall_ms=wall_ms,
+                        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_max_abs_err=library_err))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def preprocess_path(torch, counters, FA, card: str, work: Path) -> tuple:
+    """Phase (l): dataset preprocessing (tools/preprocess.py) at full width.
+    Writes PREP_IMAGES seeded JPEGs with captions in two webdataset tars, a
+    GPT-2 vocabulary and OpenAI-layout ViT-B/32 and ViT-L/14 state dicts;
+    (l1) times the host decode alone, (l2) the encoders alone on pixels
+    already on the card, (l3) runs the CLI end to end from the tars (ViT-B/32
+    f32 at batch 256 and 1024, int8 at 1024, ViT-L/14 at 256 over
+    PREP_L14_IMAGES images) with the launch counters set to 0 just before
+    each run and read just after, and checks the shards: both readers give
+    equal batches, the first PREP_CPU_IMAGES token rows equal a CPU run's and
+    their prefixes lie within CARD_VS_CPU of it, and the int8 prefixes lie
+    within INT8_MIN_COSINE of the f32 ones. K1 is held against its plain
+    version at the encoders' shapes."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from clipcap_tpu_torch.core.config import ViTConfig
+    from clipcap_tpu_torch.data import native_jpeg
+    from clipcap_tpu_torch.data.native_loader import NativeTokenPrefixDataset
+    from clipcap_tpu_torch.data.pipeline import device_prefetch
+    from clipcap_tpu_torch.data.preprocessing import clip_preprocess_u8
+    from clipcap_tpu_torch.data.token_prefix import TokenPrefixDataset
+    from clipcap_tpu_torch.tokenizers import create_tokenizer
+    from clipcap_tpu_torch.tools import preprocess as prep
+
+    t_phase = time.perf_counter()
+    root = work / "prep"
+    cores = os.cpu_count()
+    with ThreadPoolExecutor(cores) as pool:
+        samples = list(pool.map(lambda i: prep_sample(12, i), range(PREP_IMAGES)))
+    half = PREP_IMAGES // 2
+    write_tar(root / "wds" / "000.tar", samples[:half])
+    write_tar(root / "wds" / "001.tar", samples[half:], half)
+    write_tar(root / "l14" / "000.tar", samples[:PREP_L14_IMAGES])
+    write_tar(root / "cpu" / "000.tar", samples[:PREP_CPU_IMAGES])
+    write_gpt2_vocab(root / "vocab")
+    cfgs = {name: ViTConfig.clip_variant(name) for name in ("ViT-B/32", "ViT-L/14")}
+    sd_paths = {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        sd_paths[name] = root / f"clip_{cfg.layers}.pt"
+        torch.save({k: v for k, v in clip_openai_state_dict(torch, cfg, 30 + i).items()
+                    if k.startswith("visual.")}, sd_paths[name])
+    jpg_mb = sum(len(j) for j, _ in samples) / 2**20
+    say(f"(l) inputs: {PREP_IMAGES} JPEGs ({jpg_mb:.1f} MB, quality 90, sides 200-640 px) with "
+        f"5-30-word captions in two tars, ViT-B/32 and ViT-L/14 state dicts "
+        f"({time.perf_counter() - t_phase:.1f} s); {cores} host cores "
+        f"({len(os.sched_getaffinity(0))} usable)")
+
+    # (l1) the host's decode alone: JPEG -> 224x224 CHW uint8, CLIP geometry
+    datas = [j for j, _ in samples]
+    try:
+        native_jpeg.decode_batch_u8(datas[:1], 224)
+        native = True
+    except ImportError as err:  # no g++ or no libjpeg on this machine
+        lines = str(err).splitlines()
+        native, why = False, " ".join(x.strip() for x in lines if "error" in x) or lines[0]
+    decode_rates = {}
+    if native:
+        decoder = "native libjpeg"
+        for threads, n in ((1, min(512, PREP_IMAGES)), (cores, PREP_IMAGES)):
+            t0 = time.perf_counter()
+            px, status = native_jpeg.decode_batch_u8(datas[:n], 224, n_threads=threads)
+            dt = time.perf_counter() - t0
+            check(bool((status == native_jpeg.OK).all()), f"(l1) native decode failed on "
+                  f"{int((status != native_jpeg.OK).sum())} of {n} images")
+            decode_rates[f"native_{threads}_threads"] = n / dt
+    else:
+        decoder = "PIL"
+        say(f"(l1) the native JPEG decoder does not build on this machine ({why}); phase (l) "
+            f"decodes with PIL")
+
+    def pil_decode(data):
+        return clip_preprocess_u8(prep._decode_image(data), 224)
+
+    for threads, n in ((1, min(128, PREP_IMAGES)),
+                       (cores, min(512, PREP_IMAGES) if native else PREP_IMAGES)):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            pil_px = np.stack(list(pool.map(pil_decode, datas[:n])))
+        decode_rates[f"pil_{threads}_threads"] = n / (time.perf_counter() - t0)
+    if not native:
+        px = pil_px
+    figure_line(card, "(l1) host decode alone, images/s", dict(cores=cores, **decode_rates))
+    say(f"(l1) host decode alone (JPEG -> 224 px CHW uint8), images/s on {cores} cores: "
+        + ", ".join(f"{k.replace('_', ' ')} {v:.1f}" for k, v in decode_rates.items())
+        + f"; the path decodes with {decoder}")
+    # the decoded pixels staged on the card by data/pipeline.device_prefetch
+    # (pinned copies on a side stream, an event the consumer's stream waits on)
+    small, big = PREP_BATCHES
+    pixels = torch.cat(list(device_prefetch((px[i:i + small] for i in range(0, len(px), small)),
+                                            device="cuda")))
+    check(torch.equal(pixels.cpu(), torch.from_numpy(px)),
+          "(l1) device_prefetch staged other pixels than the decoder's")
+    del pil_px, px
+
+    # (l2) the encoders alone, uint8 pixels already on the card (the /255 and
+    # the normalization included), K1 once a layer per encode
+    enc_rates = {}
+    for name, int8, batch in (("ViT-B/32", False, small), ("ViT-B/32", False, big),
+                              ("ViT-B/32", True, small), ("ViT-B/32", True, big),
+                              ("ViT-L/14", False, small)):
+        encode, cfg = prep.make_clip_encoder(name, str(sd_paths[name]), pooled=True,
+                                             quantize_int8=int8, device="cuda")
+        label = f"{name} {'int8' if int8 else 'f32'} B={batch}"
+        x = pixels[:batch]
+        counters(reset=True)
+        feats = encode(x)
+        torch.cuda.synchronize()
+        k1 = counters()["fused_attention"]
+        check(k1 == cfg.layers and feats.shape == (batch, cfg.output_dim)
+              and bool(torch.isfinite(feats).all()),
+              f"(l2) {label}: K1 launched {k1} times (want {cfg.layers}), features "
+              f"{tuple(feats.shape)}")
+        wall_ms = time_ms(torch, lambda: encode(x), iters=3)
+        dev_ms = device_ms(torch, lambda: encode(x), iters=3)
+        enc_rates[label] = dict(images_per_s=batch / (wall_ms / 1e3), device_ms=dev_ms,
+                                wall_ms=wall_ms, k1_per_encode=k1)
+        say(f"(l2) encoder alone, {label}: {batch / (wall_ms / 1e3):.1f} images/s, "
+            f"{wall_ms:.2f} ms a batch (CUDA events), device {dev_ms:.2f} ms a batch; K1 {k1}")
+        del encode, feats
+        torch.cuda.empty_cache()
+    figure_line(card, "(l2) encoders alone", enc_rates)
+    del pixels
+
+    # (l3) the CLI end to end, from the tars to the shards
+    common = ["--tokenizer_vocab_dir", str(root / "vocab"), "--shard_size", str(PREP_SHARD),
+              "--num_prepro_workers", str(cores)] + ([] if native else ["--no_native_jpeg"])
+    e2e, launches = {}, 0
+    tokenizer = create_tokenizer("gpt2", str(root / "vocab"))
+    runs = (("b32_f32_small", "ViT-B/32", False, small, "wds/{000..001}.tar", PREP_IMAGES),
+            ("b32_f32_big", "ViT-B/32", False, big, "wds/{000..001}.tar", PREP_IMAGES),
+            ("b32_int8_big", "ViT-B/32", True, big, "wds/{000..001}.tar", PREP_IMAGES),
+            ("l14_f32_small", "ViT-L/14", False, small, "l14/000.tar", PREP_L14_IMAGES))
+    for label, name, int8, batch, tars, n in runs:
+        cfg = cfgs[name]
+        label = label.replace("small", str(small)).replace("big", str(big))
+        argv = ["--input_dataset", str(root / tars), "--clip_model", name,
+                "--clip_checkpoint", str(sd_paths[name]), "--batch_size", str(batch),
+                "--device", "cuda", *common, *(["--quantize_int8"] if int8 else [])]
+        counters(reset=True)
+        stats = prep.main(argv + ["--output_folder", str(root / "out" / label)])
+        torch.cuda.synchronize()
+        k1 = counters()["fused_attention"]
+        launches += k1
+        batches = -(-n // batch)
+        shards = -(-n // (-(-PREP_SHARD // batch) * batch))
+        check(stats["samples"] == n and stats["shards"] == shards and k1 == cfg.layers * batches,
+              f"(l3) {label}: {stats['samples']} samples in {stats['shards']} shards, K1 {k1} "
+              f"(want {n}, {shards}, {cfg.layers * batches})")
+        # the device's busy share of the preprocessing loop: the same run under
+        # the profiler, with the encoder and tokenizer built before it
+        encode, _ = prep.make_clip_encoder(name, str(sd_paths[name]), pooled=True,
+                                           quantize_int8=int8, device="cuda")
+        prof = profile_call(torch, f"(l3) {label}", lambda: prep.preprocess_dataset(
+            str(root / tars), str(root / "out_profiled" / label), tokenizer=tokenizer,
+            encode_fn=encode, image_size=cfg.image_size, batch_size=batch,
+            shard_size=PREP_SHARD, num_prepro_workers=cores, use_native_jpeg=native,
+            device="cuda"), 1e3 * n / stats["ips"])
+        del encode
+        e2e[label] = dict(images_per_s=stats["ips"], samples=n, shards=stats["shards"],
+                          k1=k1, busy_share=prof["busy_ms"] / prof["wall_ms"],
+                          busy_ms=prof["busy_ms"], decoder=decoder)
+        say(f"(l3) {label} end to end ({decoder} decode on {cores} threads): "
+            f"{stats['ips']:.1f} images/s, {stats['shards']} shards, K1 {k1}, device busy "
+            f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}% (profiled rerun)")
+        torch.cuda.empty_cache()
+    figure_line(card, "(l3) preprocessing end to end", e2e)
+
+    def shards(label):
+        out = root / "out" / label
+        names = sorted(p.name for p in (out / "prefixes").glob("*.npy"))
+        return (np.concatenate([np.load(out / "prefixes" / f) for f in names]),
+                np.concatenate([np.load(out / "tokens" / f) for f in names]))
+
+    # the shards read back through both readers as the same batches
+    f32_dir = str(root / "out" / f"b32_f32_{big}")
+    py, nat = iter(TokenPrefixDataset(f32_dir, batch_size=256)), None
+    try:
+        nat = NativeTokenPrefixDataset(f32_dir, batch_size=256)
+        nat_it = iter(nat)
+        for i in range(10):  # past the end of the 2048 rows: the wrap too
+            (pt, pp), (nt, npf) = next(py), next(nat_it)
+            check(np.array_equal(pt, nt) and np.array_equal(pp, npf),
+                  f"(l3) batch {i}: TokenPrefixDataset and NativeTokenPrefixDataset differ")
+    finally:
+        if nat is not None:
+            nat.close()
+    # the card's shards against the same CLI on the CPU, on the first images
+    f32_p, f32_t = shards(f"b32_f32_{big}")
+    check(f32_t.shape == (PREP_IMAGES, 128) and (f32_t[:, 0] == 50256).all(),
+          f"(l3) token shards {f32_t.shape}, not bos-first rows of 128")
+    p, t = shards(f"b32_f32_{small}")
+    check(np.array_equal(t, f32_t) and np.allclose(p, f32_p, rtol=CARD_VS_CPU[1],
+                                                   atol=CARD_VS_CPU[0]),
+          f"(l3) the shards at batch {small} differ from those at {big}")
+    t0 = time.perf_counter()
+    prep.main(["--input_dataset", str(root / "cpu" / "000.tar"), "--clip_model", "ViT-B/32",
+               "--clip_checkpoint", str(sd_paths["ViT-B/32"]), "--batch_size",
+               str(PREP_CPU_IMAGES), "--output_folder", str(root / "out" / "cpu"),
+               "--device", "cpu", *common])
+    cpu_s = time.perf_counter() - t0
+    cpu_p, cpu_t = shards("cpu")
+    check(np.array_equal(cpu_t, f32_t[:PREP_CPU_IMAGES]),
+          f"(l3) the card's first {PREP_CPU_IMAGES} token rows differ from the CPU run's")
+    cpu_err = float(np.abs(cpu_p - f32_p[:PREP_CPU_IMAGES]).max())
+    check(np.allclose(f32_p[:PREP_CPU_IMAGES], cpu_p, rtol=CARD_VS_CPU[1], atol=CARD_VS_CPU[0]),
+          f"(l3) the card's prefixes lie {cpu_err:.3e} from the CPU run's (bound atol "
+          f"{CARD_VS_CPU[0]}, rtol {CARD_VS_CPU[1]})")
+    q_p, q_t = shards(f"b32_int8_{big}")
+    cos = (q_p * f32_p).sum(-1) / (np.linalg.norm(q_p, axis=-1) * np.linalg.norm(f32_p, axis=-1))
+    check(np.array_equal(q_t, f32_t) and float(cos.min()) > INT8_MIN_COSINE,
+          f"(l3) int8 prefixes: min cosine to f32 {float(cos.min()):.5f} <= {INT8_MIN_COSINE}")
+    l14_p, l14_t = shards(f"l14_f32_{small}")
+    check(l14_p.shape == (PREP_L14_IMAGES, cfgs["ViT-L/14"].output_dim)
+          and bool(np.isfinite(l14_p).all()) and np.array_equal(l14_t, f32_t[:PREP_L14_IMAGES]),
+          f"(l3) ViT-L/14 shards {l14_p.shape}")
+    say(f"(l3) checks: both readers' batches equal; tokens of the first {PREP_CPU_IMAGES} images "
+        f"equal the CPU run's ({cpu_s:.1f} s), prefixes {cpu_err:.3e} from it (bound "
+        f"{CARD_VS_CPU[0]}); int8 prefixes min cosine {float(cos.min()):.5f} to f32 (bound "
+        f"{INT8_MIN_COSINE}); ViT-L/14 {l14_p.shape} finite")
+
+    k1_shapes = check_attention_preprocess(torch, FA)
+    say(f"preprocessing phase (l): {time.perf_counter() - t_phase:.1f} s")
+    return {"fused_attention": launches}, dict(decode=decode_rates, encoder=enc_rates,
+                                               end_to_end=e2e, cpu_max_abs_err=cpu_err,
+                                               int8_min_cosine=float(cos.min()),
+                                               k1_shapes=k1_shapes, decoder=decoder)
+
+
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     """Where the time of one call goes: the device time of each kernel
     (torch.profiler, CUPTI), summed, as a share of the wall time of the same
@@ -3681,6 +4018,9 @@ def main() -> int:
         infer_launches, infer_rates, handles = infer_path(torch, counters, bundle, card, work)
         eval_launches, eval_rates = evaluate_path(torch, counters, card, work, handles,
                                                   rates.pop("c_profile"))
+        torch.cuda.empty_cache()
+        prep_launches, prep_rates = preprocess_path(torch, counters, FA, card, work)
+        k1["at_preprocess_shapes"] = prep_rates.pop("k1_shapes")
         int8_launches, int8_rates = int8_path(torch, counters, card, work, handles, bundle,
                                                 args.xl_layers)
         del handles
@@ -3701,6 +4041,7 @@ def main() -> int:
                                  "int8": int8_launches["fused_attention"],
                                  "gptj": gptj_launches["fused_attention"],
                                  "t5": t5_launches["fused_attention"],
+                                 "preprocess": prep_launches["fused_attention"],
                                  "train": train_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
@@ -3748,6 +4089,7 @@ def main() -> int:
     say(f"int8 on {card}: " + json.dumps(int8_rates))
     say(f"gptj on {card}: " + json.dumps(gptj_rates))
     say(f"t5 on {card}: " + json.dumps(t5_rates))
+    say(f"preprocess on {card}: " + json.dumps(prep_rates))
     say(f"train on {card}: " + json.dumps(train_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -6,8 +6,8 @@ Host-side equivalent of the reference's lazy numpy reader
 ranges, deliberately not mmap so memory stays bounded). Header parsing
 uses numpy's public `np.lib.format` readers (format versions 1.0 and 2.0,
 what np.save writes) instead of the reference's regex.
-The JAX package's C++ prefetching reader (native/) is not ported: it
-comes with tools/preprocess (ROADMAP.md item 12).
+The C++ prefetching reader of native/npy_loader.cpp is bound by
+native_loader.py.
 """
 
 from __future__ import annotations

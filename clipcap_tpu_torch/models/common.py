@@ -45,10 +45,14 @@ def linear(fan_in: int, fan_out: int, *, bias: bool, gen: torch.Generator, devic
 
 
 def gather_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table[tokens], each id clamped to [0, rows - 1] on the device, as
-    JAX's gather clamps an out-of-range index to the last row (a GPT-2
-    draft embeds a wider GPT-J target's ids in speculative decoding)."""
-    return table[tokens.long().clamp(0, table.shape[0] - 1)]
+    """table[tokens] with JAX's indexing of a gather, on the device: a
+    negative id first wraps once by the row count (numpy's table[-1] is the
+    last row), then every id is clamped to [0, rows - 1], as JAX clamps an
+    out-of-range index (a GPT-2 draft embeds a wider GPT-J target's ids in
+    speculative decoding; token shards are padded with -1)."""
+    rows = table.shape[0]
+    ids = tokens.long()
+    return table[torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)]
 
 
 def remat_call(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Host utilities: metric logging."""
+"""Host utilities: metric logging (logging.py), and tracing and step timing (profiling.py)."""

@@ -43,6 +43,15 @@ GPTJ_MODULES = ["clipcap_tpu_torch.models.gptj", "clipcap_tpu_torch.decode.specu
 # T5/T0 (float, int8, ring), its tokenizer and its LM family
 T5_MODULES = ["clipcap_tpu_torch.models.t5", "clipcap_tpu_torch.tokenizers.api",
               "clipcap_tpu_torch.lm.registry"]
+# dataset preprocessing, the data pipeline, the dataset tools and profiling
+PREPROCESS_MODULES = ["clipcap_tpu_torch.core.dtypes", "clipcap_tpu_torch.data.webdataset",
+                      "clipcap_tpu_torch.data.native_jpeg", "clipcap_tpu_torch.data.native_loader",
+                      "clipcap_tpu_torch.data.pipeline", "clipcap_tpu_torch.utils.profiling",
+                      "clipcap_tpu_torch.tools.preprocess", "clipcap_tpu_torch.tools.merge_shards",
+                      "clipcap_tpu_torch.tools.len_distribution",
+                      "clipcap_tpu_torch.tools.file_hashes",
+                      "clipcap_tpu_torch.tools.resize_images",
+                      "clipcap_tpu_torch.tools.profile_decode"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -94,7 +103,7 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES + T5_MODULES):
+                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES):
         assert f"'{name}'" in out.stdout, name
 
 
@@ -137,13 +146,43 @@ def test_int8_modules_import_without_jax_or_cuda():
     assert "INT8 OK" in out.stdout and "CUDA False" in out.stdout, out.stdout
 
 
+# the preprocessing modules import without jax, triton, PIL or matplotlib,
+# without starting CUDA, and without building or loading a native library
+_IMPORT_PREPROCESS = """
+import ctypes, importlib.abc, subprocess, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "triton", "clipcap_tpu", "PIL", "matplotlib"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import importlib, numpy, torch
+def refuse(*a, **k):
+    raise AssertionError(f"import ran {a[:1]}")
+subprocess.run = subprocess.Popen = ctypes.CDLL = refuse
+for name in %r:
+    importlib.import_module(name)
+from clipcap_tpu_torch.data import native_jpeg, native_loader
+assert native_jpeg._lib is None and native_loader._lib is None
+print("CUDA initialized", torch.cuda.is_initialized())
+print("PREPROCESS OK")
+""" % (PREPROCESS_MODULES,)
+
+
+def test_preprocess_modules_import_without_pil_cuda_or_a_native_build():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PREPROCESS], capture_output=True,
+                         text=True, cwd=ROOT, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "PREPROCESS OK" in out.stdout and "CUDA initialized False" in out.stdout, out.stdout
+
+
 def test_source_has_no_jax_or_jax_package_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|clipcap_tpu)(\.|\s|$)", re.M)
     top = re.compile(r"^(import|from)\s+(PIL|regex|tokenizers|transformers)(\.|\s|$)", re.M)
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES + T5_MODULES):
+                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES):
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
@@ -168,6 +207,31 @@ def test_config_fields_and_defaults_match_jax(name):
     assert fa == fb
     assert dataclasses.asdict(a()) == dataclasses.asdict(b())
     assert a().to_json() == b().to_json()
+
+
+@pytest.mark.parametrize("name", ["DTypePolicy", "FP32", "BF16_INFERENCE", "default_policy"])
+def test_dtype_policy_fields_and_defaults_match_jax(name):
+    """core/dtypes: the same fields, and the same dtypes by name, over torch
+    dtypes where the JAX package has jnp ones."""
+    import jax.numpy as jnp
+    import torch
+
+    from clipcap_tpu.core import dtypes as jax_dtypes
+    from clipcap_tpu_torch.core import dtypes as torch_dtypes
+
+    def policy(mod):
+        obj = getattr(mod, name)
+        return obj() if callable(obj) else obj
+
+    a, b = policy(jax_dtypes), policy(torch_dtypes)
+    fields = [f.name for f in dataclasses.fields(jax_dtypes.DTypePolicy)]
+    assert fields == [f.name for f in dataclasses.fields(torch_dtypes.DTypePolicy)]
+    assert ([jnp.dtype(getattr(a, f)).name for f in fields]
+            == [str(getattr(b, f)).removeprefix("torch.") for f in fields])
+    x = torch.ones(2, dtype=torch.float16)
+    assert b.cast_compute(x).dtype == b.compute_dtype and b.cast_accum(x).dtype == b.accum_dtype
+    y = torch.ones(2, dtype=b.compute_dtype)
+    assert b.cast_compute(y) is y
 
 
 @pytest.mark.parametrize("variant", ["gpt2", "gpt2-medium", "gpt2-large", "gpt2-xl"])
