@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning, serving, evaluation, preprocessing
-and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's captioning, serving, evaluation, preprocessing,
+Gen-B synthesis and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--xl_layers N] [--gptj_layers N]
+    python3 chip_smoke.py [--xl_layers N] [--gptj_layers N] [--t0_layers N]
 
 From the root of the repository, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It
@@ -73,8 +73,8 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 9. drives int8 decode (phase (i), run before (h)): the int8 products
    (torch._int_mm at every GPT2-XL linear shape and the paths' rows, the
    f32 attention dots on int8 values) against exact CPU products; a
-   GPT2-XL captioner (full width, 12 of its 48 layers since phase (j) came,
-   for the run's time; --xl_layers 48 runs it whole) seeded on the card in
+   GPT2-XL captioner (full width, 8 of its 48 layers since phase (m) came,
+   12 before, for the run's time; --xl_layers 48 runs it whole) seeded on the card in
    bf16 and quantized by bundle.enable_int8_decode() (every q and s against
    the CPU's, prefill logits within 16 bf16 steps); the no-beam sweep on
    the bf16 and the int8 LM (device ms and launches per step, busy share, captions/s);
@@ -87,8 +87,8 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 10. drives GPT-J-6B (phase (j), after (i), before (h)): K2/K3/K4 against
    their plain versions at its vocabulary of 50400 (9, 16, 64, 72 and 512
    rows, every cluster size there); the captioner (CLIP ViT-B/32, the
-   mapper at 4096, GPT-J-6B: 8 of its 28 layers since phase (k) came, for
-   the run's time, --gptj_layers 28 for all; 16 heads of 256) seeded on the
+   mapper at 4096, GPT-J-6B: 4 of its 28 layers since phase (m) came, 8
+   before, for the run's time, --gptj_layers 28 for all; 16 heads of 256) seeded on the
    card in bf16, a 2-layer cut held against the CPU (logits, the int8
    quantization); the no-beam sweep, beam search and serving in bf16 and
    in int8; speculative greedy decode with the model as its own draft and
@@ -97,10 +97,12 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    training over GPT-J-6B at all 28 layers frozen in int8 (BASELINE config #4: a 2-layer
    transformer mapper at 4096, batch 16, lm_apply=apply_q8), the int8 LM
    bit-identical after the steps, a 2-layer cut's loss against the CPU;
-11. drives T0-11B (phase (k), after (j), before (h)): K2/K3/K4 against
+11. drives T0-11B (phase (k), after (j), before (m)): K2/K3/K4 against
    their plain versions at T0's vocabulary of 32128; the captioner (CLIP
-   ViT-B/32, the mapper at 4096, T5Config.variant("t0-11b"): 24 + 24
-   layers, 64 heads of 64, d_ff 10240, gated-gelu, untied lm_head) seeded
+   ViT-B/32, the mapper at 4096, T5Config.variant("t0-11b") at 8 + 8 of
+   its 24 + 24 layers since phase (m) came, for the run's time,
+   --t0_layers 24 for all; 64 heads of 64, d_ff 10240, gated-gelu, untied
+   lm_head) seeded
    on the card in bf16 and driven by token ids, K1 in a bf16 and an f32
    encode, a 2 + 2-layer cut held against the CPU (buckets, logits, the
    int8 quantization, greedy tokens); greedy decode at batch 64, the
@@ -127,7 +129,26 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    it, the int8 prefixes within (i5)'s cosine bound of the f32 ones; and
    holds K1 against its plain version at the encoders' shapes
    [1024, 50, 12, 64], [256, 50, 12, 64] and [256, 257, 16, 64] f32;
-13. prints one JSON line of kernels, the card line, and last
+13. drives Gen-B caption synthesis (phase (m), after (k), before (h)):
+   writes seeded weights in their published layouts (a BLIP captioner in
+   HF's BlipForConditionalGeneration layout: ViT-L/16 at 384 px and the
+   text decoder at bert-base width, vocabulary 30524; a BLIP retrieval
+   model: ViT-B/16 at 384 px, the text encoder, ITM and ITC heads;
+   OpenAI-layout CLIP ViT-L/14 and RN50x64 at 448 px in fp16; a 30524-line
+   vocab.txt) and loads them through cli.loading; (m1) holds K1 at
+   [1, 577, 16, 64], [1, 577, 12, 64] and [1, 257, 16, 64] f32 and K2 at
+   [40, 30524] (top-k 2500, the grid's per-row top-p, after a 1.3
+   penalty) against their plain versions; (m2a) the text decoder's 2-layer
+   cut against the CPU (logits, sampled tokens with injected noise); (m2)
+   SynthesisEngine.synthesize of 40 candidates for one image with the
+   default grids in f32 and (m4) SynthesisEngine.rank in all five modes,
+   with the launch counters set to 0 just before and read just after
+   (K1 once a layer per encode, K2 once a step), the rankers' scores
+   against the CPU; (m3) enable_int8_decode (q and s equal the CPU's, the
+   logits within 16 bf16 steps of f32's) and an int8 synthesis; per-step
+   device ms, launches and busy share of both; (m5) `python -m
+   clipcap_tpu_torch.cli.caption_me --mode CLIP-ViT-L` from the files;
+14. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -429,7 +450,7 @@ def check_attention_grad(torch, FA):
     return out
 
 
-def sampler_bound(rows: int, vocab: int, prologue: bool):
+def sampler_bound(rows: int, vocab: int, prologue: bool, topk: bool = False):
     """The least time of the top-p filter + sampler at [rows, vocab] (the
     main path's flags: no top-k). Bytes: the f32 logits read once (and the
     int8 `appears` mask and eos gate for the prologue), the per-row settings
@@ -437,9 +458,10 @@ def sampler_bound(rows: int, vocab: int, prologue: bool):
     token, not the design's 28-step bisection: max, exp and sum for the
     softmax (4); the top-p cutoff by a radix select of the f32 keys in four
     8-bit passes, a shift, mask and mass add each (12); the Gumbel add and a
-    top-2 compare (3); the prologue's logsumexp, penalty and temperature (6)."""
+    top-2 compare (3); the prologue's logsumexp, penalty and temperature (6);
+    with `topk` (Gen B's top-k 2500), the top-k cutoff's radix select (12)."""
     nbytes = rows * vocab * 4 + rows * 8 + rows * 12
-    per_token = 4 + 12 + 3
+    per_token = 4 + 12 + 3 + (12 if topk else 0)
     if prologue:
         nbytes += rows * vocab + rows * 8
         per_token += 6
@@ -1041,15 +1063,18 @@ def write_gpt2_vocab(folder: Path) -> None:
         "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
 
 
-def clip_openai_state_dict(torch, vit_cfg, seed: int) -> dict:
-    """A seeded OpenAI-layout CLIP state dict (CPU tensors): the ViT-B/32
-    image tower and CLIP_TEXT's text tower, with the key names and shapes
-    that clip_vit_from_openai_state_dict / clip_text_from_openai_state_dict
-    read. Drawn on the card, N(0, 0.02) weights and small biases."""
+def clip_openai_state_dict(torch, vit_cfg, seed: int, text: dict = CLIP_TEXT,
+                           dtype=None) -> dict:
+    """A seeded OpenAI-layout CLIP state dict (CPU tensors, f32 unless
+    `dtype`): the `vit_cfg` image tower (none when it is None) and `text`'s
+    text tower, with the key names and shapes that
+    clip_vit_from_openai_state_dict / clip_text_from_openai_state_dict read.
+    Drawn on the card, N(0, 0.02) weights and small biases."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = dtype or torch.float32
 
     def w(*shape, s=0.02):
-        return (torch.randn(shape, generator=gen, device="cuda") * s).cpu()
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype).cpu()
 
     def blocks(prefix, d, n):
         out = {}
@@ -1063,18 +1088,22 @@ def clip_openai_state_dict(torch, vit_cfg, seed: int) -> dict:
                         p + "mlp.c_proj.weight": w(d, 4 * d), p + "mlp.c_proj.bias": w(d)})
         return out
 
-    d, pch, t = vit_cfg.width, vit_cfg.patch_size, CLIP_TEXT["width"]
-    sd = {"visual.conv1.weight": w(d, 3, pch, pch), "visual.class_embedding": w(d, s=d ** -0.5),
-          "visual.positional_embedding": w(vit_cfg.seq_len, d, s=d ** -0.5),
-          "visual.ln_pre.weight": 1 + w(d), "visual.ln_pre.bias": w(d),
-          "visual.ln_post.weight": 1 + w(d), "visual.ln_post.bias": w(d),
-          "visual.proj": w(d, vit_cfg.output_dim, s=d ** -0.5),
-          "token_embedding.weight": w(CLIP_TEXT["vocab_size"], t),
-          "positional_embedding": w(CLIP_TEXT["context_length"], t, s=0.01),
-          "ln_final.weight": 1 + w(t), "ln_final.bias": w(t),
-          "text_projection": w(t, CLIP_TEXT["output_dim"], s=t ** -0.5)}
-    sd.update(blocks("visual.", d, vit_cfg.layers))
-    sd.update(blocks("", t, CLIP_TEXT["layers"]))
+    sd, t = {}, text["width"]
+    if vit_cfg is not None:
+        d, pch = vit_cfg.width, vit_cfg.patch_size
+        sd.update({"visual.conv1.weight": w(d, 3, pch, pch),
+                   "visual.class_embedding": w(d, s=d ** -0.5),
+                   "visual.positional_embedding": w(vit_cfg.seq_len, d, s=d ** -0.5),
+                   "visual.ln_pre.weight": 1 + w(d), "visual.ln_pre.bias": w(d),
+                   "visual.ln_post.weight": 1 + w(d), "visual.ln_post.bias": w(d),
+                   "visual.proj": w(d, vit_cfg.output_dim, s=d ** -0.5)})
+    sd.update({"token_embedding.weight": w(text["vocab_size"], t),
+               "positional_embedding": w(text["context_length"], t, s=0.01),
+               "ln_final.weight": 1 + w(t), "ln_final.bias": w(t),
+               "text_projection": w(t, text["output_dim"], s=t ** -0.5)})
+    if vit_cfg is not None:
+        sd.update(blocks("visual.", d, vit_cfg.layers))
+    sd.update(blocks("", t, text["layers"]))
     return sd
 
 
@@ -2042,10 +2071,10 @@ def train_path(torch, counters, card: str, work: Path) -> tuple:
 # --- 9. int8 decode at GPT2-XL width -------------------------------------------------
 
 XL_D, XL_IMAGES, XL_BEAM_IMAGES = 1600, 8, 64
-# GPT2-XL's depth in (i) by default: 12 of its 48 layers, cut when phase (j)
-# joined the run to keep the whole smoke well inside its time limit (the
-# int8 path is per layer the same at any depth); --xl_layers 48 runs it whole
-XL_LAYERS = 12
+# GPT2-XL's depth in (i) by default: 8 of its 48 layers, cut when phases (j)
+# and (m) joined the run to keep the whole smoke well inside its time limit
+# (the int8 path is per layer the same at any depth); --xl_layers 48 runs it whole
+XL_LAYERS = 8
 INT8_ROWS = (9, 16, 72, 320)  # the paths' rows: --no_beam, evaluate, the sweep, beam
 # card against CPU for the int8 LM (bf16 activations): a logit within this
 # many bf16 steps (2^-8) of the logits' scale; a greedy or beam choice may
@@ -2497,9 +2526,9 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
 
 GPTJ_IMAGES, GPTJ_CUT = 8, 2  # the sweep's images; the CPU cut's and the checkpoint's layers
 # GPT-J-6B's depth in (j), of its 28 layers: cut for the run's time since
-# phase (k) came (the decode paths are per layer the same at any depth);
-# --gptj_layers 28 runs it whole. (j6)'s frozen int8 LM is always whole.
-GPTJ_LAYERS = 8
+# phases (k) and (m) came (the decode paths are per layer the same at any
+# depth); --gptj_layers 28 runs it whole. (j6)'s frozen int8 LM is always whole.
+GPTJ_LAYERS = 4
 GPTJ_BEAM_IMAGES = {"bf16": 64, "int8": 32}  # int8 beam at half the images, for the run's time
 GPTJ_SOLO = 2  # served requests held against their solo generate
 SPEC_GAMMA, SPEC_NEW = 4, 67
@@ -3060,6 +3089,10 @@ T0_BEAM_IMAGES = {"bf16": 64, "int8": 32}  # int8 beam at half the images, for t
 T0_EOS, T0_STOP = 1, 5  # T5's </s>; a fixed id standing for "."
 T0_WORDS = 32100  # the tokenizer.json's vocabulary, T0's (its 28 padding rows decode to nothing)
 T0_CUT_SOLO = 8  # the cut's served requests held against their solo runs
+# T0-11B's depth in (k), of its 24 + 24 layers: cut to 8 + 8 for the run's
+# time since phase (m) came (the decode paths are per layer the same at any
+# depth); --t0_layers 24 runs it whole
+T0_LAYERS = 8
 
 
 class T5IdTokenizer:
@@ -3203,10 +3236,11 @@ def check_t5_cut(torch, cut, prompts) -> dict:
     return dict(errs=errs, scale=scale, batch_invariance=inv, min_cpu_gap=gaps)
 
 
-def t5_path(torch, counters, FS, S, card: str, work: Path) -> tuple:
-    """(k) T0-11B captioning at full width and depth: CLIP ViT-B/32, the
-    default mapper at width 4096 and T5Config.variant("t0-11b")
-    (bigscience/T0: 24 + 24 layers, 4096 wide, 64 heads of 64, d_ff 10240,
+def t5_path(torch, counters, FS, S, card: str, work: Path,
+            t0_layers: int = T0_LAYERS) -> tuple:
+    """(k) T0-11B captioning at full width: CLIP ViT-B/32, the default
+    mapper at width 4096 and T5Config.variant("t0-11b") at t0_layers of
+    each stack (bigscience/T0: 24 + 24 layers, 4096 wide, 64 heads of 64, d_ff 10240,
     gated-gelu, an untied lm_head, vocabulary 32128), seeded on the card in
     bf16 and driven by token ids (T5IdTokenizer). (k-) K2/K3/K4 against
     their plain versions at T0's vocabulary (check_sampler at
@@ -3261,7 +3295,8 @@ def t5_path(torch, counters, FS, S, card: str, work: Path) -> tuple:
 
     # (k0) the captioner in bf16
     t0 = time.perf_counter()
-    lm_cfg = T5Config.variant("t0-11b")
+    lm_cfg = dataclasses.replace(T5Config.variant("t0-11b"), num_layers=t0_layers,
+                                 num_decoder_layers=t0_layers)
     cap_cfg = CaptionerConfig(lm_type="t0", lm_variant="t0-11b", visual_encoder_type="CLIP",
                               visual_encoder_variant="ViT-B/32",
                               mapper=MapperConfig(dim_embedding=lm_cfg.d_model))
@@ -3585,8 +3620,8 @@ def t5_path(torch, counters, FS, S, card: str, work: Path) -> tuple:
     figure_line(card, "(k) T0-11B peak device memory", dict(peak_gb=peak_gb, int8_gb=int8_gb))
     say(f"(k) peak device memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
     say(f"T0 phase (k): {time.perf_counter() - t_phase:.1f} s")
-    return launches, dict(build_s=build_s, cut=cut_check, decode=results, cli_s=cli_s,
-                          peak_gb=peak_gb, npz_gb=npz_gb, int8_gb=int8_gb,
+    return launches, dict(t0_layers=t0_layers, build_s=build_s, cut=cut_check, decode=results,
+                          cli_s=cli_s, peak_gb=peak_gb, npz_gb=npz_gb, int8_gb=int8_gb,
                           sampler_v32128={name: dict(k234[name], cluster=clusters)
                                           for name in k234})
 
@@ -3635,15 +3670,17 @@ def write_tar(path: Path, samples, start: int = 0) -> None:
                 tf.addfile(info, io.BytesIO(data))
 
 
-def check_attention_preprocess(torch, FA) -> list:
-    """K1 against its plain version at the shapes of phase (l)'s encoders
-    (f32 views of one packed qkv projection), with the device times of the
-    kernel, the plain version and SDPA beside the bound."""
+def check_attention_preprocess(torch, FA, shapes=K1_PREP_SHAPES,
+                               label: str = "phase (l)'s encoders") -> list:
+    """K1 against its plain version at the shapes of a phase's encoders
+    (phase (l)'s by default; f32 views of one packed qkv projection), with
+    the device times of the kernel, the plain version and SDPA beside the
+    bound."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     out = []
-    for b, t, h, dh in K1_PREP_SHAPES:
+    for b, t, h, dh in shapes:
         q, k, v = packed_qkv(torch, gen, b, t, h, dh, torch.float32)
         got = FA.fused_attention(q, k, v)
         torch.cuda.synchronize()
@@ -3667,7 +3704,7 @@ def check_attention_preprocess(torch, FA) -> list:
         plain_ms = time_ms(torch, lambda: FA.fused_attention_plain(q, k, v), 3)
         library_ms = time_ms(torch, sdpa, 10)
         bound_ms, bound_by = attention_bound(b, t, h, dh, "f32")
-        say(f"K1 B={b} T={t} H={h} dh={dh} f32 packed qkv (phase (l)'s encoders): max abs err "
+        say(f"K1 B={b} T={t} H={h} dh={dh} f32 packed qkv ({label}): max abs err "
             f"{err:.3e} (atol {K1_TOL['float32'][0]}, rtol {K1_TOL['float32'][1]}; SDPA's "
             f"{library_err:.3e}); kernel {ms:.4f} device ms ({wall_ms:.4f} by CUDA events); "
             f"by CUDA events: plain {plain_ms:.4f}, SDPA {library_ms:.4f}; bound "
@@ -3911,6 +3948,608 @@ def preprocess_path(torch, counters, FA, card: str, work: Path) -> tuple:
                                                k1_shapes=k1_shapes, decoder=decoder)
 
 
+# --- 13. Gen B: BLIP caption synthesis and its rankers (phase (m)) --------------------
+
+GENB_VOCAB, GENB_EOS, GENB_CANDIDATES = 30524, 102, 40  # BERT + [DEC]/[ENC]; [SEP]
+GENB_CUT, GENB_NOISE_STEPS = 2, 8  # the text decoder's cut held against the CPU
+# the attention shapes [B, T, H, dh] phase (m)'s encoders hand K1: BLIP ViT-L/16
+# and ViT-B/16 at 384 px, CLIP ViT-L/14 at 224 px, one image each
+K1_GENB_SHAPES = [(1, 577, 16, 64), (1, 577, 12, 64), (1, 257, 16, 64)]
+# the rankers' OpenAI text towers: ViT-L/14's and RN50x64's
+L14_TEXT = dict(vocab_size=49408, context_length=77, width=768, layers=12, output_dim=768)
+RN50X64_TEXT = dict(vocab_size=49408, context_length=77, width=1024, layers=12,
+                    output_dim=1024)
+GENB_MODES = ("CLIP-ViT-L", "CLIP-RN50x64", "CLIP-ViT-L+RN50x64", "ITM", "ITC")
+RANK_ATOL = 1e-3  # a ranker's scores on the card against the port on the CPU
+
+
+def write_bert_vocab(path: Path) -> None:
+    """A WordPiece vocab.txt of BLIP's size (30524) in BERT's layout: [PAD]
+    0, [unused0-98], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, whole
+    words (the Gen-B prompt's among them), '##' pieces, and BLIP's [DEC]
+    30522 and [ENC] 30523 last."""
+    toks = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]", "picture"] + list(CAPTION_WORDS))
+    toks = list(dict.fromkeys(toks))
+    n_words = (GENB_VOCAB - 2 - len(toks)) // 2
+    toks += [f"w{i}" for i in range(n_words)]
+    toks += [f"##p{i}" for i in range(GENB_VOCAB - 2 - len(toks))] + ["[DEC]", "[ENC]"]
+    check(len(toks) == GENB_VOCAB and toks[GENB_EOS] == "[SEP]", "BERT vocabulary malformed")
+    path.write_text("\n".join(toks) + "\n")
+
+
+def _draw(torch, seed: int, dtype):
+    """w(*shape, s): N(0, s^2) drawn on the card from a seeded generator,
+    returned on the host in `dtype`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape, s=0.02):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype).cpu()
+    return w
+
+
+def blip_vision_hf(w, prefix: str, vit_cfg) -> dict:
+    """HF BlipVisionModel's keys and shapes under `prefix`."""
+    d, p, h = vit_cfg.width, vit_cfg.patch_size, int(vit_cfg.width * vit_cfg.mlp_ratio)
+    sd = {prefix + "embeddings.class_embedding": w(1, 1, d),
+          prefix + "embeddings.position_embedding": w(1, vit_cfg.seq_len, d),
+          prefix + "embeddings.patch_embedding.weight": w(d, 3, p, p),
+          prefix + "embeddings.patch_embedding.bias": w(d),
+          prefix + "post_layernorm.weight": 1 + w(d), prefix + "post_layernorm.bias": w(d)}
+    for i in range(vit_cfg.layers):
+        s = f"{prefix}encoder.layers.{i}."
+        sd.update({s + "self_attn.qkv.weight": w(3 * d, d), s + "self_attn.qkv.bias": w(3 * d),
+                   s + "self_attn.projection.weight": w(d, d),
+                   s + "self_attn.projection.bias": w(d),
+                   s + "layer_norm1.weight": 1 + w(d), s + "layer_norm1.bias": w(d),
+                   s + "layer_norm2.weight": 1 + w(d), s + "layer_norm2.bias": w(d),
+                   s + "mlp.fc1.weight": w(h, d), s + "mlp.fc1.bias": w(h),
+                   s + "mlp.fc2.weight": w(d, h), s + "mlp.fc2.bias": w(d)})
+    return sd
+
+
+def bert_hf(w, prefix: str, cfg, lm_head: bool) -> dict:
+    """HF BlipTextLMHeadModel's keys ("bert."-rooted, with the MLM head)
+    or BlipTextModel's (bare) under `prefix`, cross-attention included."""
+    d, f, ew, v = cfg.hidden_size, cfg.intermediate_size, cfg.encoder_width, cfg.vocab_size
+    b = prefix + "bert." if lm_head else prefix
+    sd = {b + "embeddings.word_embeddings.weight": w(v, d),
+          b + "embeddings.position_embeddings.weight": w(cfg.max_position_embeddings, d),
+          b + "embeddings.LayerNorm.weight": 1 + w(d), b + "embeddings.LayerNorm.bias": w(d)}
+    for i in range(cfg.num_layers):
+        s = f"{b}encoder.layer.{i}."
+        for kind, kv in (("attention", d), ("crossattention", ew)):
+            for name, width in (("query", d), ("key", kv), ("value", kv)):
+                sd[f"{s}{kind}.self.{name}.weight"] = w(d, width)
+                sd[f"{s}{kind}.self.{name}.bias"] = w(d)
+            sd.update({f"{s}{kind}.output.dense.weight": w(d, d),
+                       f"{s}{kind}.output.dense.bias": w(d),
+                       f"{s}{kind}.output.LayerNorm.weight": 1 + w(d),
+                       f"{s}{kind}.output.LayerNorm.bias": w(d)})
+        sd.update({s + "intermediate.dense.weight": w(f, d), s + "intermediate.dense.bias": w(f),
+                   s + "output.dense.weight": w(d, f), s + "output.dense.bias": w(d),
+                   s + "output.LayerNorm.weight": 1 + w(d), s + "output.LayerNorm.bias": w(d)})
+    if lm_head:
+        c = prefix + "cls.predictions."
+        sd.update({c + "transform.dense.weight": w(d, d), c + "transform.dense.bias": w(d),
+                   c + "transform.LayerNorm.weight": 1 + w(d),
+                   c + "transform.LayerNorm.bias": w(d), c + "decoder.weight": w(v, d),
+                   c + "bias": w(v)})
+    return sd
+
+
+def clip_resnet_openai_state_dict(torch, rn_cfg, seed: int) -> dict:
+    """A seeded OpenAI-layout CLIP ResNet state dict in fp16 (as OpenAI
+    ships its checkpoints): the `visual.*` tower of `rn_cfg` (BatchNorm
+    statistics off identity) and RN50X64_TEXT's text tower."""
+    w = _draw(torch, seed, torch.float16)
+
+    def bn(p, c):
+        return {f"{p}.weight": 1 + w(c, s=0.05), f"{p}.bias": w(c),
+                f"{p}.running_mean": w(c), f"{p}.running_var": 1 + w(c).abs(),
+                f"{p}.num_batches_tracked": torch.tensor(0)}
+
+    def conv(cout, cin, k):
+        return w(cout, cin, k, k, s=(cin * k * k) ** -0.5)
+
+    width = rn_cfg.width
+    sd = {"visual.conv1.weight": conv(width // 2, 3, 3), **bn("visual.bn1", width // 2),
+          "visual.conv2.weight": conv(width // 2, width // 2, 3), **bn("visual.bn2", width // 2),
+          "visual.conv3.weight": conv(width, width // 2, 3), **bn("visual.bn3", width)}
+    inplanes = width
+    for stage, blocks in enumerate(rn_cfg.layers):
+        planes = width * 2**stage
+        for j in range(blocks):
+            p = f"visual.layer{stage + 1}.{j}"
+            sd.update({f"{p}.conv1.weight": conv(planes, inplanes, 1), **bn(f"{p}.bn1", planes),
+                       f"{p}.conv2.weight": conv(planes, planes, 3), **bn(f"{p}.bn2", planes),
+                       f"{p}.conv3.weight": conv(planes * 4, planes, 1),
+                       **bn(f"{p}.bn3", planes * 4)})
+            if j == 0:
+                sd.update({f"{p}.downsample.0.weight": conv(planes * 4, inplanes, 1),
+                           **bn(f"{p}.downsample.1", planes * 4)})
+            inplanes = planes * 4
+    spacial = rn_cfg.image_size // 32
+    sd["visual.attnpool.positional_embedding"] = w(spacial**2 + 1, inplanes, s=inplanes**-0.5)
+    for name, out in (("q", inplanes), ("k", inplanes), ("v", inplanes),
+                      ("c", rn_cfg.output_dim)):
+        sd[f"visual.attnpool.{name}_proj.weight"] = w(out, inplanes, s=inplanes**-0.5)
+        sd[f"visual.attnpool.{name}_proj.bias"] = w(out)
+    text = {k: v for k, v in clip_openai_state_dict(torch, None, seed + 1, RN50X64_TEXT,
+                                                    torch.float16).items()
+            if not k.startswith("visual.")}
+    return {**sd, **text}
+
+
+def check_sampler_genb(torch, FS, S) -> dict:
+    """(m1) K2 at the synthesis step's shape, [40, 30524]: seeded logits
+    after a 1.3 repetition penalty over a 12-token history, top-k 2500 and
+    the default grid's per-row top-p (each moved to mid-gap, as
+    check_sampler does), injected noise: next and alt exact, alt_prob within
+    SAMPLER_RTOL of the plain version; the per-row numpy vectors that
+    hetero.sample hands the engine give the same draws as tensors; Philox
+    draws inside the plain filter's kept set; then the device times of the
+    kernel at Gen B's flags (top-k and top-p, no alt_prob), the plain
+    version and the bound, and the cluster size the launcher picks."""
+    import numpy as np
+
+    from clipcap_tpu_torch.cli.synthesis import default_grids
+
+    rows, vocab = GENB_CANDIDATES, GENB_VOCAB
+    FS._check_vocab(vocab)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    raw = torch.randn(rows, vocab, generator=gen, device="cuda") * 3
+    hist = torch.randint(0, vocab, (rows, 12), generator=gen, device="cuda")
+    x = S.repetition_penalty(raw, hist, 1.3).contiguous()
+    grid = torch.tensor(default_grids(n=rows)[0], device="cuda")
+    kk = FS.resolve_top_k(2500.0, rows, vocab, "cuda")
+    pp, gap = mid_gap_top_p(torch, FS, x, kk, grid)
+    noise = S.gumbel_like(x, gen)
+    got = FS.fused_filter_sample(x, 2500.0, pp, 7, gumbel_noise=noise)
+    want = FS.sampler_plain(x, kk, pp, 7, do_topk=True, do_topp=True, want_alt_prob=True,
+                            gumbel_noise=noise)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"(m1) K2 [{rows}, {vocab}]: next or alt differs from the plain version")
+    err = assert_close(torch, got[2], want[2], 1e-7, SAMPLER_RTOL, "(m1) K2 alt_prob")
+    as_np = FS.fused_filter_sample(x, np.full(rows, 2500.0, np.float32),
+                                   pp.cpu().numpy(), 7, gumbel_noise=noise)
+    check(all(torch.equal(a, b) for a, b in zip(as_np, got)),
+          "(m1) K2 with hetero's numpy per-row vectors differs from tensors")
+    kept = torch.isfinite(FS.fused_filter_plain(x, kk, pp))
+    for seed in (11, 12, 13):
+        nxt, _, _ = FS.fused_filter_sample(x, 2500.0, pp, seed)
+        check(bool(kept[torch.arange(rows, device="cuda"), nxt.long()].all()),
+              f"(m1) K2 [{rows}, {vocab}] with Philox sampled a filtered token")
+    cluster = FS.cluster_size(rows, vocab)
+
+    def k2():
+        return FS.fused_filter_sample(x, 2500.0, grid, 5, want_alt_prob=False)
+
+    ms = device_ms(torch, k2, kernel="sampler_kernel")
+    wall_ms = time_ms(torch, k2)
+    plain_ms = device_ms(torch, lambda: FS.sampler_plain(x, kk, grid, 5, do_topk=True,
+                                                         do_topp=True, want_alt_prob=False), 5)
+    bound_ms, bound_by = sampler_bound(rows, vocab, prologue=False, topk=True)
+    say(f"(m1) K2 [{rows}, {vocab}] (top-k 2500, the grid's top-p per row, after a 1.3 "
+        f"repetition penalty), cluster of {cluster} blocks per row: next/alt exact with injected "
+        f"noise, alt_prob max abs err {err:.3e} (rtol {SAMPLER_RTOL}), numpy per-row vectors "
+        f"taken unchanged, Philox inside the kept set (top-p moved to mid-gap: nearest cumulative "
+        f"mass {gap:.2e} relative away); device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
+        f"bound {bound_ms:.4f} ({bound_by}); wrapper wall {wall_ms:.4f}")
+    return dict(shape=[rows, vocab], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, cluster=cluster,
+                wall_ms=wall_ms)
+
+
+def blip_text_cut(text, n_layer: int):
+    """The first n_layer blocks of a BlipText with its embeddings and head,
+    sharing the model's tensors (nothing is copied)."""
+    import dataclasses
+
+    from torch import nn
+
+    cut = copy.copy(text)
+    cut._modules = dict(text._modules)  # the copy's own module table
+    cut.blocks = nn.ModuleList(list(text.blocks)[:n_layer])
+    cut.cfg = dataclasses.replace(text.cfg, num_layers=n_layer)
+    return cut
+
+
+def check_genb_cut(torch, cut, feats, tok) -> dict:
+    """(m2a) The card's BLIP text decoder against the port on the CPU, on
+    its first GENB_CUT layers at full width (the same f32 tensors) over
+    the card's image features: prefill logits (every position) and the
+    first step's logits within CARD_VS_CPU; then GENB_NOISE_STEPS steps of
+    the engine's sampled step (engine.sample_step: the raw eos logprob,
+    min-length suppression, the 1.3 penalty, top-k 2500, the grid's top-p;
+    K2 on the card, the plain threshold path on the CPU) with the same
+    injected noise, both fed the CPU's tokens: a card token may differ from
+    the CPU's only where the CPU's top-2 gap of the filtered, perturbed
+    logits lies below 2 x CARD_VS_CPU's atol. Returns the errors, the
+    CPU's smallest gap and the flips."""
+    from clipcap_tpu_torch.cli.synthesis import default_grids
+    from clipcap_tpu_torch.decode import engine as E
+    from clipcap_tpu_torch.models.blip_text import decoder_lm
+    from clipcap_tpu_torch.ops import sampling as S
+    from clipcap_tpu_torch.ops.kernels import fused_sampler as FS
+
+    rows, n = GENB_CANDIDATES, GENB_NOISE_STEPS
+    top_p, min_len, _ = default_grids(n=rows)
+    ids = tok.encode("a picture of ")
+    prompt = torch.tensor([[tok.bos_token_id] + ids[1:-1]] * rows, device="cuda")
+    settings = E.GenerationSettings(max_new_tokens=n, top_k=2500.0, top_p=top_p,
+                                    repetition_penalty=1.3, eos_token_id=GENB_EOS,
+                                    min_length=min_len)
+    cpu = copy.deepcopy(cut).cpu()
+    sides = {"card": (cut, feats, "cuda"), "cpu": (cpu, feats.cpu(), "cpu")}
+    gen = torch.Generator().manual_seed(44)
+    noise = [S.gumbel_like(torch.zeros(rows, GENB_VOCAB), gen) for _ in range(n)]
+    state, errs, gaps, flips = {}, {}, [], 0
+    with torch.no_grad():
+        for side, (text, img, dev) in sides.items():
+            lm = decoder_lm(text, img, torch.ones(img.shape[:-1], dtype=torch.int32, device=dev),
+                            repeat=rows)
+            p = prompt.to(dev)
+            logits, cache = lm.prefill(p, lm.init_cache(rows, p.shape[1] + n + 1),
+                                       full_logits=True)
+            hist = torch.zeros(rows, p.shape[1] + n, dtype=torch.int64, device=dev)
+            hist[:, :p.shape[1]] = p
+            valid = torch.zeros(hist.shape, dtype=torch.bool, device=dev)
+            valid[:, :p.shape[1]] = True
+            state[side] = dict(lm=lm, cache=cache, logits=logits, hist=hist, valid=valid,
+                               rows=[S.per_row(v, rows, dev) for v in (2500.0, top_p, 0.0)],
+                               min_len=S.per_row(min_len, rows, dev, torch.int64),
+                               rand=E.StepRandomness(0, dev))
+        errs["prefill"] = assert_close(torch, state["card"]["logits"].cpu(),
+                                       state["cpu"]["logits"], *CARD_VS_CPU,
+                                       "(m2a) prefill logits card vs CPU")
+        p_len = prompt.shape[1]
+        for step in range(n):
+            nxt = {}
+            for side, st in state.items():
+                last = st["logits"][:, -1].float()
+                if step == 1:
+                    st["first_step"] = last
+                nxt[side], _, _, _ = E.sample_step(
+                    settings, last, *st["rows"], st["rand"], use_fused_step=False, counter=step,
+                    min_len=st["min_len"], hist=st["hist"], hist_valid=st["valid"],
+                    gumbel_noise=noise[step].to(last.device))
+            cs = state["cpu"]
+            x = cs["logits"][:, -1].float().clone()
+            x[:, GENB_EOS] = torch.where(step < cs["min_len"], float("-inf"), x[:, GENB_EOS])
+            x = S.repetition_penalty(x, cs["hist"], 1.3, tokens_valid=cs["valid"])
+            kk = FS.resolve_top_k(2500.0, rows, GENB_VOCAB, "cpu")
+            y = FS.fused_filter_plain(x, kk, cs["rows"][1]) + noise[step]
+            top2 = y.topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            gaps.append(float(gap.min()))
+            differ = nxt["card"].cpu() != nxt["cpu"]
+            flips += int(differ.sum())
+            check(bool((gap[differ] < 2 * CARD_VS_CPU[0]).all()),
+                  f"(m2a) a sampled token differs from the CPU's at step {step}, where the "
+                  f"CPU's gap is {float(gap[differ].min()) if differ.any() else 0:.4g}")
+            for side, st in state.items():
+                tok_in = nxt["cpu"].to(st["hist"].device)
+                st["hist"][:, p_len + step] = tok_in
+                st["valid"][:, p_len + step] = True
+                st["logits"], st["cache"] = st["lm"].decode_step(tok_in[:, None], st["cache"])
+                st["logits"] = st["logits"][:, None]
+        errs["first_step"] = assert_close(torch, state["card"]["first_step"].cpu(),
+                                          state["cpu"]["first_step"], *CARD_VS_CPU,
+                                          "(m2a) first step logits card vs CPU")
+    del cpu, state
+    return dict(errs=errs, min_cpu_gap=min(gaps), flips=flips)
+
+
+def _rank_scores(torch, engine, image, captions, mode):
+    """Every caption's score under `mode` (the two-stage mode: its top 3)."""
+    from clipcap_tpu_torch.cli.synthesis import ranker_preprocess
+
+    if "+" in mode:
+        return engine.rank(image, captions, mode, top_n=3)
+    if mode.startswith("CLIP"):
+        name = "ViT-L/14" if mode == "CLIP-ViT-L" else "RN50x64"
+        px = torch.from_numpy(ranker_preprocess(engine, name, image))[None]
+        return list(zip(captions, engine.clip_rankers[name].rank(px, captions)))
+    px = torch.from_numpy(ranker_preprocess(engine, "blip", image))[None]
+    return list(zip(captions, engine.blip_ranker.rank(px, captions, mode=mode.lower())))
+
+
+def check_ranking_vs_cpu(torch, card_scores: dict, cpu_scores: dict) -> dict:
+    """(m4) Each single-stage mode's scores of every caption on the card
+    within RANK_ATOL of the CPU's, and their order equal to the CPU's
+    wherever two of the CPU's scores lie further apart than twice the
+    largest error; the two-stage mode's top 3 equal to two_stage_rank over
+    the card's own ViT-L/14 and RN50x64 scores, each within RANK_ATOL of
+    the CPU's RN50x64 score of that caption."""
+    import numpy as np
+
+    from clipcap_tpu_torch.rank.cascade import two_stage_rank
+
+    out = {}
+    for mode, card in card_scores.items():
+        if "+" in mode:
+            table = {m: dict(card_scores[m]) for m in ("CLIP-ViT-L", "CLIP-RN50x64")}
+            want = two_stage_rank([c for c, _ in card_scores["CLIP-ViT-L"]],
+                                  lambda cs: [table["CLIP-ViT-L"][c] for c in cs],
+                                  lambda cs: [table["CLIP-RN50x64"][c] for c in cs], 5, 3)
+            check([c for c, _ in card] == [c for c, _ in want],
+                  f"(m4) {mode}: the card's top 3 is not the cascade of its own scores")
+            cpu = dict(cpu_scores["CLIP-RN50x64"])
+        else:
+            cpu = dict(cpu_scores[mode])
+        caps = [c for c, _ in card]
+        a = np.array([s for _, s in card])
+        b = np.array([cpu[c] for c in caps])
+        err = float(np.abs(a - b).max())
+        check(bool(np.isfinite(a).all()) and err <= RANK_ATOL,
+              f"(m4) {mode}: scores card vs CPU max abs err {err:.3e} > {RANK_ATOL}")
+        if "+" not in mode:
+            order_a, order_b = np.argsort(-a, kind="stable"), np.argsort(-b, kind="stable")
+            for i in np.nonzero(order_a != order_b)[0]:
+                check(abs(b[order_a[i]] - b[order_b[i]]) <= 2 * err,
+                      f"(m4) {mode}: the order differs from the CPU's at rank {i} beyond a "
+                      f"near-tie")
+        out[mode] = err
+    return out
+
+
+def genb_path(torch, counters, FA, FS, S, card: str, work: Path) -> tuple:
+    """Phase (m): Gen-B caption synthesis at full width through the
+    entry points `cli.caption_me` drives. Writes seeded weights in their
+    published layouts: a BLIP captioner in HF BlipForConditionalGeneration's
+    (ViT-L/16 at 384 px; the text decoder at bert-base width, 12 layers,
+    vocabulary 30524, cross-attending the ViT's 1024), a BLIP retrieval
+    model in HF BlipForImageTextRetrieval's (ViT-B/16 at 384 px, the text
+    encoder, the ITM and ITC heads), OpenAI-layout CLIP ViT-L/14 and
+    RN50x64 (448 px) state dicts in fp16, a 30524-line vocab.txt and a
+    JPEG; loads them through cli.loading. (m1) K1 at the encoders' shapes
+    and K2 at [40, 30524] against their plain versions; (m2a) the text
+    decoder's cut against the CPU; (m2) SynthesisEngine.synthesize of 40
+    candidates with the default grids in f32 and (m4) SynthesisEngine.rank
+    in all five modes, with the launch counters set to 0 just before the
+    synthesis and read after the ranking; the rankers' scores against the
+    port on the CPU; (m3) enable_int8_decode: q and s equal the CPU's, the
+    int8 logits near f32's, an int8 synthesis; (m5) `python -m
+    clipcap_tpu_torch.cli.caption_me` from the files on disk."""
+    import math
+
+    import numpy as np
+    from PIL import Image
+
+    from clipcap_tpu_torch import convert
+    from clipcap_tpu_torch.cli.loading import (load_blip_captioner, load_clip_ranker,
+                                               load_state_dict)
+    from clipcap_tpu_torch.cli.synthesis import SynthesisEngine, default_grids
+    from clipcap_tpu_torch.core.config import BlipTextConfig, ViTConfig
+    from clipcap_tpu_torch.data.preprocessing import blip_preprocess
+    from clipcap_tpu_torch.decode import hetero
+    from clipcap_tpu_torch.models.blip_retrieval import BlipRetrieval
+    from clipcap_tpu_torch.models.blip_text import decoder_lm, quantize_params
+    from clipcap_tpu_torch.models.clip_resnet import ResNetConfig
+    from clipcap_tpu_torch.rank.rankers import BLIPRanker, CLIPRanker
+    from clipcap_tpu_torch.tools.import_weights import blip_retrieval_from_hf_state_dict
+
+    t_phase = time.perf_counter()
+    rates = {}
+    # (m1) the kernels at the slice's shapes; comparisons, not counted on the path
+    rates["k1_shapes"] = check_attention_preprocess(torch, FA, K1_GENB_SHAPES,
+                                                    "phase (m)'s encoders")
+    rates["k2"] = check_sampler_genb(torch, FS, S)
+
+    # (m0) the weights, in their published layouts, on disk
+    t0 = time.perf_counter()
+    root = work / "genb"
+    root.mkdir(parents=True, exist_ok=True)
+    vit_l = ViTConfig.blip_variant("ViT-L")
+    text_cfg = BlipTextConfig(encoder_width=vit_l.width)
+    vit_b = ViTConfig.blip_variant("ViT-B")
+    ret_text = BlipTextConfig(encoder_width=vit_b.width)
+    w = _draw(torch, 51, torch.float32)
+    torch.save({**blip_vision_hf(w, "vision_model.", vit_l),
+                **bert_hf(w, "text_decoder.", text_cfg, lm_head=True)}, root / "blip.pth")
+    w = _draw(torch, 52, torch.float32)
+    torch.save({**blip_vision_hf(w, "vision_model.", vit_b),
+                **bert_hf(w, "text_encoder.", ret_text, lm_head=False),
+                "vision_proj.weight": w(ret_text.embed_dim, vit_b.width),
+                "vision_proj.bias": w(ret_text.embed_dim),
+                "text_proj.weight": w(ret_text.embed_dim, ret_text.hidden_size),
+                "text_proj.bias": w(ret_text.embed_dim),
+                "itm_head.weight": w(2, ret_text.hidden_size), "itm_head.bias": w(2)},
+               root / "blip_retrieval.pth")
+    torch.save(clip_openai_state_dict(torch, ViTConfig.clip_variant("ViT-L/14"), 53, L14_TEXT,
+                                      torch.float16), root / "vit_l14.pt")
+    torch.save(clip_resnet_openai_state_dict(torch, ResNetConfig.variant("RN50x64"), 54),
+               root / "rn50x64.pt")
+    write_bert_vocab(root / "vocab.txt")
+    (root / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(" ".join(m) for m in CLIP_MERGES) + "\n")
+    write_jpegs(root / "img", 1, 55)
+    image_path = root / "img" / "img000.jpg"
+    sizes = {f.name: f.stat().st_size / 1e9 for f in root.glob("*.p*")}
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    blip_params, vit_cfg, blip_text_cfg, tok = load_blip_captioner(
+        str(root / "blip.pth"), str(root / "vocab.txt"), device="cuda")
+    rankers = {name: load_clip_ranker(name, str(root / f), str(root / "merges.txt"),
+                                      device="cuda")
+               for name, f in (("ViT-L/14", "vit_l14.pt"), ("RN50x64", "rn50x64.pt"))}
+    retrieval = convert.load(BlipRetrieval(vit_b, ret_text, device="cuda"),
+                             blip_retrieval_from_hf_state_dict(
+                                 load_state_dict(str(root / "blip_retrieval.pth")), vit_b,
+                                 ret_text))
+    engine = SynthesisEngine(blip_params, vit_cfg, blip_text_cfg, tok, clip_rankers=rankers,
+                             blip_ranker=BLIPRanker(retrieval, vit_b, ret_text, tok))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    text = blip_params["text"]
+    check(tok.vocab_size == GENB_VOCAB and tok.bos_token_id == 30522
+          and tok.sep_token_id == GENB_EOS and tok.enc_token_id == 30523,
+          "(m0) the WordPiece tokenizer's special ids")
+    n_params = {k: sum(p.numel() for p in m.parameters()) / 1e6
+                for k, m in (("blip_vit_l", blip_params["visual"]), ("blip_text", text),
+                             ("retrieval", retrieval),
+                             ("clip_vit_l14", rankers["ViT-L/14"].visual),
+                             ("rn50x64", rankers["RN50x64"].visual))}
+    say(f"(m0) weights written in {write_s:.1f} s ({', '.join(f'{k} {v:.2f} GB' for k, v in sizes.items())}) "
+        f"and loaded onto the card through cli.loading in {load_s:.1f} s; M params: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in n_params.items())
+        + f"; RN50x64 config from the checkpoint {rankers['RN50x64'].vit_cfg}")
+    rates["weights_write_s"], rates["weights_load_s"] = write_s, load_s
+
+    image = Image.open(image_path).convert("RGB")
+    pixels = torch.from_numpy(blip_preprocess(image, vit_cfg.image_size))[None]
+    feats = engine.encode_image(pixels)
+    check(tuple(feats.shape) == (1, vit_cfg.seq_len, vit_cfg.width)
+          and bool(torch.isfinite(feats).all()), f"(m2) BLIP ViT-L features {tuple(feats.shape)}")
+
+    # (m2a) the text decoder's 2-layer cut against the CPU
+    t0 = time.perf_counter()
+    cut = check_genb_cut(torch, blip_text_cut(text, GENB_CUT), feats, tok)
+    say(f"(m2a) the text decoder's {GENB_CUT}-layer cut at full width card vs CPU (f32): prefill "
+        f"{cut['errs']['prefill']:.3e}, first step {cut['errs']['first_step']:.3e} (bound "
+        f"{CARD_VS_CPU[0]}); {GENB_NOISE_STEPS} sampled steps with injected noise: {cut['flips']} "
+        f"tokens differ from the CPU's (the CPU's smallest top-2 gap {cut['min_cpu_gap']:.3e}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rates["cut"] = cut
+
+    # (m2) synthesis and (m4) ranking: the counted run, after one warm-up
+    top_p, min_len, max_len = default_grids(n=GENB_CANDIDATES)
+    steps = int(max_len.max()) + 1
+    engine.synthesize(pixels, sample_count=GENB_CANDIDATES, seed=1)
+    for mode in GENB_MODES:
+        _rank_scores(torch, engine, image, ["a picture of a cat"], mode)
+    torch.cuda.synchronize()
+    counters(reset=True)
+    t0 = time.perf_counter()
+    captions, params, stats = engine.synthesize(pixels, sample_count=GENB_CANDIDATES, seed=42)
+    torch.cuda.synchronize()
+    synth_ms = (time.perf_counter() - t0) * 1e3
+    after_synth = counters()
+    card_scores, rank_ms = {}, {}
+    for mode in GENB_MODES:
+        t3 = time.perf_counter()
+        card_scores[mode] = _rank_scores(torch, engine, image, captions, mode)
+        torch.cuda.synchronize()
+        rank_ms[mode] = (time.perf_counter() - t3) * 1e3
+    launches = counters()
+    # the encode alone, after the counted run: the rest of a synthesis is the decode loop
+    encode_ms = time_ms(torch, lambda: engine.encode_image(pixels), 5)
+    decode_ms = synth_ms - encode_ms
+    enc = engine.encode_image(pixels)
+    k1_want = vit_cfg.layers + 2 * rankers["ViT-L/14"].vit_cfg.layers + 2 * vit_b.layers
+    check(after_synth["fused_attention"] == vit_cfg.layers
+          and after_synth["fused_filter_sample"] == steps,
+          f"(m2) synthesis launched K1 {after_synth['fused_attention']} (want {vit_cfg.layers}) "
+          f"and K2 {after_synth['fused_filter_sample']} times (want {steps}, one a step)")
+    check(launches["fused_attention"] == k1_want
+          and launches["fused_filter_sample"] == steps and launches["fused_step_sample"] == 0,
+          f"(m) launches {launches}: want K1 {k1_want}, K2 {steps}, K3 0")
+    check(len(captions) == len(params) == len(stats) and len(captions) >= 2
+          and all(isinstance(c, str) and c for c in captions)
+          and all(np.isfinite(s["eos_prob"]).all() and len(s["tokens"]) <= steps
+                  for s in stats), f"(m2) {len(captions)} candidates malformed")
+    say(f"(m2) SynthesisEngine.synthesize of {GENB_CANDIDATES} candidates for one image (f32, "
+        f"default grids, top-k 2500, force-eos 0.9, {steps} steps): {len(captions)} distinct; "
+        f"{synth_ms:.1f} ms an image: the encode {encode_ms:.1f} ms (alone, CUDA events), the "
+        f"decode loop {decode_ms:.1f} ms; K1 {after_synth['fused_attention']}, K2 {after_synth['fused_filter_sample']} "
+        f"launches (cluster {FS.cluster_size(GENB_CANDIDATES, GENB_VOCAB)}); first: "
+        f"{captions[0][:60]!r}")
+    say(f"(m4) ranking the {len(captions)} candidates on the card, ms a mode: "
+        + ", ".join(f"{m} {v:.1f}" for m, v in rank_ms.items())
+        + f"; launches on the path (synthesis + ranking): {launches}")
+    prof = per_step_profile(torch, "(m2) synthesis, f32", lambda n: hetero.sample(
+        enc, text, tok, sample_count=GENB_CANDIDATES, top_p=top_p, top_k=2500,
+        min_len=np.minimum(min_len, n - 1), max_len=np.full(GENB_CANDIDATES, n - 1),
+        force_eos_log_prob=math.log(0.9), seed=42), 11, steps)
+    rates["synthesis_f32"] = dict(candidates=len(captions), steps=steps, encode_ms=encode_ms,
+                                  decode_ms=decode_ms, ms_per_image=synth_ms,
+                                  k1=after_synth["fused_attention"],
+                                  k2=after_synth["fused_filter_sample"], **prof)
+    figure_line(card, "genb_synthesis_f32", rates["synthesis_f32"])
+
+    # (m4) the rankers against the port on the CPU
+    t0 = time.perf_counter()
+    cpu_engine = SynthesisEngine(
+        {}, vit_cfg, blip_text_cfg, tok,
+        clip_rankers={n: CLIPRanker(copy.deepcopy(r.visual).cpu(), copy.deepcopy(r.text).cpu(),
+                                    r.tokenizer) for n, r in rankers.items()},
+        blip_ranker=BLIPRanker(copy.deepcopy(retrieval).cpu(), vit_b, ret_text, tok))
+    cpu_scores = {mode: _rank_scores(torch, cpu_engine, image, captions, mode)
+                  for mode in GENB_MODES}
+    rank_err = check_ranking_vs_cpu(torch, card_scores, cpu_scores)
+    del cpu_engine
+    say(f"(m4) every mode's scores within {RANK_ATOL} of the CPU's and in its order (near-ties "
+        f"aside); max abs err " + ", ".join(f"{m} {e:.2e}" for m, e in rank_err.items())
+        + f"; top of CLIP-ViT-L+RN50x64: {card_scores['CLIP-ViT-L+RN50x64'][0][0][:60]!r} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rates["rank_ms"], rates["rank_max_abs_err"] = rank_ms, rank_err
+    figure_line(card, "genb_rank_ms", rank_ms)
+
+    # (m3) the int8 decoder
+    t0 = time.perf_counter()
+    q_cpu = quantize_params(copy.deepcopy(text).cpu()).state_dict()
+    engine.enable_int8_decode()
+    q8 = engine.blip_params["text"]
+    for name, t in q8.state_dict().items():
+        check(t.dtype == q_cpu[name].dtype and torch.equal(t.cpu(), q_cpu[name]),
+              f"(m3) int8 {name} differs from the CPU's quantization")
+    del q_cpu
+    ids = tok.encode("a picture of ")
+    prompt = torch.tensor([[tok.bos_token_id] + ids[1:-1]] * GENB_CANDIDATES, device="cuda")
+    with torch.no_grad():
+        logits = {}
+        for key, mod in (("f32", text), ("int8", q8)):
+            lm = decoder_lm(mod, enc, repeat=GENB_CANDIDATES)
+            logits[key], _ = lm.prefill(prompt, lm.init_cache(GENB_CANDIDATES, prompt.shape[1]),
+                                        full_logits=True)
+    scale = float(logits["f32"].abs().max())
+    err8 = max_abs(logits["int8"], logits["f32"])
+    check(bool(torch.isfinite(logits["int8"]).all()) and err8 <= int8_bound(scale),
+          f"(m3) int8 prefill logits vs f32: max abs err {err8:.4g} > {int8_bound(scale):.4g}")
+    engine.synthesize(pixels, sample_count=GENB_CANDIDATES, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caps8, _, _ = engine.synthesize(pixels, sample_count=GENB_CANDIDATES, seed=42)
+    torch.cuda.synchronize()
+    synth8_ms = (time.perf_counter() - t1) * 1e3
+    prof8 = per_step_profile(torch, "(m3) synthesis, int8", lambda n: hetero.sample(
+        enc, q8, tok, sample_count=GENB_CANDIDATES, top_p=top_p, top_k=2500,
+        min_len=np.minimum(min_len, n - 1), max_len=np.full(GENB_CANDIDATES, n - 1),
+        force_eos_log_prob=math.log(0.9), seed=42), 11, steps)
+    say(f"(m3) int8 decoder: every q and s equal the CPU's quantization; prefill logits "
+        f"{err8:.4g} from f32's (bound {int8_bound(scale):.4g}: {INT8_LOGIT_STEPS} bf16 steps of "
+        f"max|logit| {scale:.3f}); int8 synthesis {len(caps8)} distinct, {synth8_ms:.1f} ms an "
+        f"image, the decode loop {synth8_ms - encode_ms:.1f} ms ({time.perf_counter() - t0:.1f} s)")
+    rates["synthesis_int8"] = dict(candidates=len(caps8), steps=steps, encode_ms=encode_ms,
+                                   decode_ms=synth8_ms - encode_ms, ms_per_image=synth8_ms,
+                                   logits_max_abs_err=err8, logits_scale=scale, **prof8)
+    figure_line(card, "genb_synthesis_int8", rates["synthesis_int8"])
+    del engine, blip_params, text, q8, rankers, retrieval, feats, enc, logits
+    torch.cuda.empty_cache()
+
+    # (m5) the CLI end to end from the files on disk
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "clipcap_tpu_torch.cli.caption_me", str(image_path),
+         "--blip_checkpoint", str(root / "blip.pth"), "--blip_vocab", str(root / "vocab.txt"),
+         "--clip_vit_l_checkpoint", str(root / "vit_l14.pt"), "--clip_merges",
+         str(root / "merges.txt"), "--mode", "CLIP-ViT-L"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and len(lines) >= 4 and "distinct candidates; top 3:" in lines[-4]
+          and all(x.startswith(f"{i:02d} [") for i, x in enumerate(lines[-3:])),
+          f"(m5) caption_me exited {out.returncode}: {out.stdout[-500:]} {out.stderr[-2000:]}")
+    say(f"(m5) python -m clipcap_tpu_torch.cli.caption_me --mode CLIP-ViT-L from the files on "
+        f"disk: exit 0 in {cli_s:.1f} s; " + " | ".join(x[:80] for x in lines[-4:]))
+    rates["cli_s"] = cli_s
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"Gen-B phase (m): {time.perf_counter() - t_phase:.1f} s")
+    return launches, rates
+
+
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     """Where the time of one call goes: the device time of each kernel
     (torch.profiler, CUPTI), summed, as a share of the wall time of the same
@@ -3953,6 +4592,9 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="drive the port's paths on one CUDA card")
+    ap.add_argument("--t0_layers", type=int, default=T0_LAYERS, choices=range(2, 25),
+                    metavar="N", help=f"T0-11B's depth in phase (k), of each stack's 24 "
+                    f"layers (default {T0_LAYERS})")
     ap.add_argument("--gptj_layers", type=int, default=GPTJ_LAYERS, choices=range(2, 29),
                     metavar="N", help=f"GPT-J-6B's depth in phase (j), of its 28 layers "
                     f"(default {GPTJ_LAYERS})")
@@ -4029,7 +4671,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         gptj_rates["int8_prefix_train"] = gptj_int8_train(torch, card)
         torch.cuda.empty_cache()
-        t5_launches, t5_rates = t5_path(torch, counters, FS, S, card, work)
+        t5_launches, t5_rates = t5_path(torch, counters, FS, S, card, work, args.t0_layers)
+        torch.cuda.empty_cache()
+        genb_launches, genb_rates = genb_path(torch, counters, FA, FS, S, card, work)
+        k1["at_genb_shapes"] = genb_rates.pop("k1_shapes")
         torch.cuda.empty_cache()
         train_launches, train_rates = train_path(torch, counters, card, work)
     finally:
@@ -4042,6 +4687,7 @@ def main() -> int:
                                  "gptj": gptj_launches["fused_attention"],
                                  "t5": t5_launches["fused_attention"],
                                  "preprocess": prep_launches["fused_attention"],
+                                 "genb": genb_launches["fused_attention"],
                                  "train": train_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
@@ -4050,6 +4696,7 @@ def main() -> int:
                                      "int8": int8_launches["fused_filter_sample"],
                                      "gptj": gptj_launches["fused_filter_sample"],
                                      "t5": t5_launches["fused_filter_sample"],
+                                     "genb": genb_launches["fused_filter_sample"],
                                      "train": train_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"],
@@ -4077,6 +4724,8 @@ def main() -> int:
     for name in ("fused_filter_sample", "fused_step_sample", "fused_filter"):
         sources[name][2]["at_vocab_50400"] = v50400[name]
         sources[name][2]["at_vocab_32128"] = v32128[name]
+    # K2 at Gen B's synthesis step, [40, 30524] with top-k 2500 and per-row top-p
+    sources["fused_filter_sample"][2]["at_genb_40x30524"] = genb_rates.pop("k2")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(paths[name].values()), launches_by_path=paths[name],
                     on_path=name != "fused_filter", **nums)
@@ -4090,6 +4739,7 @@ def main() -> int:
     say(f"gptj on {card}: " + json.dumps(gptj_rates))
     say(f"t5 on {card}: " + json.dumps(t5_rates))
     say(f"preprocess on {card}: " + json.dumps(prep_rates))
+    say(f"genb on {card}: " + json.dumps(genb_rates))
     say(f"train on {card}: " + json.dumps(train_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)

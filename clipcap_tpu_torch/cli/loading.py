@@ -1,6 +1,7 @@
 """Model loading for the CLIs (port of clipcap_tpu/cli/loading.py:
-load_state_dict, load_clip_ranker's ViT branch, load_captioner_bundle; the
-towers and the captioner also load without their tokenizers).
+load_state_dict, load_clip_ranker (ViT and ResNet towers),
+load_blip_captioner, load_captioner_bundle; the towers and the captioner
+also load without their tokenizers).
 
 Every loader takes local paths and downloads nothing: torch .pth/.bin
 state dicts and .npz dumps (converted by tools/import_weights), the port's
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.config import CaptionerConfig, CLIPTextConfig, ViTConfig
+from ..core.config import BlipTextConfig, CaptionerConfig, CLIPTextConfig, ViTConfig
 from ..lm.registry import get_lm_config
 
 
@@ -39,26 +40,38 @@ def _layers(sd: dict, prefix: str, at: int) -> int:
     return len({k.split(".")[at] for k in sd if k.startswith(prefix)})
 
 
+def _openai_text_cfg(sd: dict) -> CLIPTextConfig:
+    """The text tower's config of an OpenAI CLIP checkpoint, from its shapes."""
+    width = np.asarray(sd["ln_final.weight"]).shape[0]
+    return CLIPTextConfig(
+        vocab_size=np.asarray(sd["token_embedding.weight"]).shape[0], width=width,
+        layers=_layers(sd, "transformer.resblocks.", 2), heads=width // 64,
+        output_dim=np.asarray(sd["text_projection"]).shape[1])
+
+
 def load_clip_towers(clip_model: str, checkpoint: str, device: str = "cuda"):
-    """CLIP's image and text towers (models.vit.ViT, models.clip_text.CLIPText)
-    on `device`, from an OpenAI (keys `visual.*`) or HF CLIP state dict."""
+    """CLIP's image and text towers on `device`: for an "RN..." model the
+    ModifiedResNet (models.clip_resnet, its config from the checkpoint's
+    shapes, as clip.load derives it) from an OpenAI state dict; else the
+    ViT (models.vit.ViT) from an OpenAI (keys `visual.*`) or HF state dict.
+    The text tower is models.clip_text.CLIPText."""
     from .. import convert
+    from ..models.clip_resnet import ModifiedResNet
     from ..models.clip_text import CLIPText
     from ..models.vit import ViT
     from ..tools import import_weights as W
 
-    if clip_model.startswith("RN"):
-        raise NotImplementedError(
-            f"CLIP {clip_model}: the ResNet image tower is not ported yet (ROADMAP.md item 11, "
-            "Gen B); use a ViT variant")
-    vit_cfg = ViTConfig.clip_variant(clip_model)
     sd = load_state_dict(checkpoint)
+    if clip_model.startswith("RN"):
+        rn_cfg = W.clip_resnet_config_from_state_dict(sd)
+        text_cfg = _openai_text_cfg(sd)
+        visual = convert.load(ModifiedResNet(rn_cfg, device=device),
+                              W.clip_resnet_from_openai_state_dict(sd, rn_cfg))
+        text_sd = W.clip_text_from_openai_state_dict(sd, text_cfg)
+        return visual, convert.load(CLIPText(text_cfg, device=device), text_sd)
+    vit_cfg = ViTConfig.clip_variant(clip_model)
     if any(k.startswith("visual.") for k in sd):
-        width = np.asarray(sd["ln_final.weight"]).shape[0]
-        text_cfg = CLIPTextConfig(
-            vocab_size=np.asarray(sd["token_embedding.weight"]).shape[0], width=width,
-            layers=_layers(sd, "transformer.resblocks.", 2), heads=width // 64,
-            output_dim=np.asarray(sd["text_projection"]).shape[1])
+        text_cfg = _openai_text_cfg(sd)
         vit_sd = W.clip_vit_from_openai_state_dict(sd, vit_cfg)
         text_sd = W.clip_text_from_openai_state_dict(sd, text_cfg)
     else:
@@ -74,12 +87,38 @@ def load_clip_towers(clip_model: str, checkpoint: str, device: str = "cuda"):
 
 
 def load_clip_ranker(clip_model: str, checkpoint: str, merges_path: str, device: str = "cuda"):
-    """A CLIPRanker from an OpenAI or HF CLIP state dict and CLIP's merges file."""
+    """A CLIPRanker from a CLIP state dict (OpenAI or HF for a ViT, OpenAI
+    for an "RN..." ResNet) and CLIP's merges file."""
     from ..rank.rankers import CLIPRanker
     from ..tokenizers.clip_bpe import CLIPTokenizer
 
     visual, text = load_clip_towers(clip_model, checkpoint, device=device)
     return CLIPRanker(visual, text, CLIPTokenizer.from_merges_file(merges_path))
+
+
+def load_blip_captioner(checkpoint: str, vocab_file: str, vit_variant: str = "ViT-L",
+                        image_size: int = 384, device: str = "cuda"):
+    """A BLIP caption checkpoint (HF BlipForConditionalGeneration's state
+    dict; reference sampling.py:330-343) and its BERT vocab.txt ->
+    ({"visual": ViT, "text": BlipText} on `device`, ViTConfig,
+    BlipTextConfig, WordPieceTokenizer). The text decoder has bert-base's
+    geometry (BlipTextConfig's defaults) and cross-attends the ViT's
+    width, as JAX's loader builds it."""
+    from .. import convert
+    from ..models.blip_text import BlipText
+    from ..models.vit import ViT
+    from ..tokenizers.wordpiece import WordPieceTokenizer
+    from ..tools import import_weights as W
+
+    sd = load_state_dict(checkpoint)
+    vit_cfg = ViTConfig.blip_variant(vit_variant, image_size=image_size)
+    text_cfg = BlipTextConfig(encoder_width=vit_cfg.width)
+    params = {"visual": convert.load(ViT(vit_cfg, device=device),
+                                     W.blip_vit_from_hf_state_dict(sd, vit_cfg)),
+              "text": convert.load(BlipText(text_cfg, device=device),
+                                   W.blip_text_from_hf_state_dict(sd, text_cfg,
+                                                                  prefix="text_decoder."))}
+    return params, vit_cfg, text_cfg, WordPieceTokenizer.from_vocab_file(vocab_file)
 
 
 def load_captioner(checkpoint_path: str, device: str = "cuda"):

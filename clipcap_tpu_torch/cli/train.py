@@ -202,9 +202,6 @@ def train(args) -> dict:
         data_iter = iter(dataset)
     else:
         if args.visual_encoder_type == "BLIP":
-            if args.visual_checkpoint:
-                raise _not_ported("--visual_encoder_type BLIP with a --visual_checkpoint "
-                                  "(the BLIP converter)", 11)
             vit_cfg = ViTConfig.blip_variant(args.visual_encoder_model_variant)
             preprocess = lambda img: blip_preprocess(img, vit_cfg.image_size)  # noqa: E731
         elif args.visual_encoder_type == "CLIP":
@@ -241,7 +238,7 @@ def train(args) -> dict:
         _load_lm(model, args)
     if vit_cfg is not None:
         if args.visual_checkpoint:
-            _load_visual(model, vit_cfg, args.visual_checkpoint)
+            _load_visual(model, vit_cfg, args.visual_checkpoint, args.visual_encoder_type)
         else:
             print("WARNING: no --visual_checkpoint; random visual encoder weights")
 
@@ -290,14 +287,18 @@ def _load_lm(model, args) -> None:
     print(f"loaded LM weights from {args.lm_checkpoint}")
 
 
-def _load_visual(model, vit_cfg, checkpoint: str) -> None:
-    """A CLIP image tower from an OpenAI (keys `visual.*`) or HF state dict."""
+def _load_visual(model, vit_cfg, checkpoint: str, encoder_type: str) -> None:
+    """The image tower: BLIP's from an HF BlipVisionModel state dict (bare,
+    or a whole BLIP checkpoint's `vision_model.*`), CLIP's from an OpenAI
+    (keys `visual.*`) or HF state dict (JAX cli/train.py:238-250)."""
     from .. import convert
     from ..tools import import_weights as W
     from .loading import load_state_dict
 
     sd = load_state_dict(checkpoint)
-    if any(k.startswith("visual.") for k in sd):
+    if encoder_type == "BLIP":
+        convert.load(model.visual, W.blip_vit_from_hf_state_dict(sd, vit_cfg))
+    elif any(k.startswith("visual.") for k in sd):
         convert.load(model.visual, W.clip_vit_from_openai_state_dict(sd, vit_cfg))
     else:
         convert.load(model.visual, W.clip_vit_from_hf_state_dict(sd, vit_cfg))

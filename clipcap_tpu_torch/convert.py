@@ -24,8 +24,9 @@ q = 0 and s = 1e-12, what the port's own quantization gives zero rows,
 and sliced back to the vocabulary on the way out. GPT-J's int8 lm_head
 (vocabulary 50400) and T5's (32128 for T0) need no padding. So the
 converters read and write what `gpt2.quantize_params`,
-`gptj.quantize_params`, `t5.quantize_params` and `vit.quantize_params`
-make in either package.
+`gptj.quantize_params`, `t5.quantize_params`, `blip_text.quantize_params`
+and `vit.quantize_params` make in either package (BLIP's int8 head, vocabulary
+30524, is padded as GPT-2's is).
 """
 
 from __future__ import annotations
@@ -220,6 +221,88 @@ def clip_text_state_dict(params: dict) -> StateDict:
         sd.update(_lin(f"{p}.out", blocks["attn"]["wo"], blocks["attn"]["bo"], i))
         sd.update(_lin(f"{p}.fc1", blocks["mlp"]["w1"], blocks["mlp"]["b1"], i))
         sd.update(_lin(f"{p}.fc2", blocks["mlp"]["w2"], blocks["mlp"]["b2"], i))
+    return sd
+
+
+_BLIP_ATTN = {"self": "self_attn", "cross": "cross_attn"}
+
+
+def blip_text_state_dict(params: dict) -> StateDict:
+    """clipcap_tpu.models.blip_text params (float, or blip_text.quantize_params'
+    int8 tree) -> clipcap_tpu_torch.models.blip_text.BlipText. An int8 head
+    ([D, V]) is padded to the port's multiple-of-8 channels with q = 0,
+    s = 1e-12 and a zero bias, as the port's quantize_params pads it."""
+    sd = {"word_embeddings": np.asarray(params["word_embeddings"]),
+          "position_embeddings": np.asarray(params["position_embeddings"])}
+    sd.update(_ln("emb_ln", params["emb_ln"]))
+    blocks = params["blocks"]
+    for i in range(np.asarray(blocks["mlp"]["ln"]["g"]).shape[0]):
+        p = f"blocks.{i}"
+        for src, dst in _BLIP_ATTN.items():
+            a = blocks[src]
+            for name in ("q", "k", "v", "o"):
+                sd.update(_lin(f"{p}.{dst}.w{name}", a[f"w{name}"], a[f"b{name}"], i))
+            sd.update(_ln(f"{p}.{dst}.ln", a["ln"], i))
+        mlp = blocks["mlp"]
+        sd.update(_lin(f"{p}.mlp.fc1", mlp["w1"], mlp["b1"], i))
+        sd.update(_lin(f"{p}.mlp.fc2", mlp["w2"], mlp["b2"], i))
+        sd.update(_ln(f"{p}.mlp.ln", mlp["ln"], i))
+    if "cls" in params:
+        cls = params["cls"]
+        sd.update(_lin("cls_transform", cls["transform"]["w"], cls["transform"]["b"]))
+        sd.update(_ln("cls_ln", cls["transform_ln"]))
+        head = _lin("cls_decoder", cls["decoder"]["w"], cls["decoder"]["b"])
+        if "cls_decoder.q" in head:
+            extra = -head["cls_decoder.q"].shape[0] % CHANNEL_ALIGN
+            head["cls_decoder.q"] = np.pad(head["cls_decoder.q"], ((0, extra), (0, 0)))
+            head["cls_decoder.s"] = np.pad(head["cls_decoder.s"], (0, extra),
+                                           constant_values=np.float32(1e-12))
+            head["cls_decoder.bias"] = np.pad(head["cls_decoder.bias"], (0, extra))
+        sd.update(head)
+    return sd
+
+
+def blip_retrieval_state_dict(params: dict) -> StateDict:
+    """clipcap_tpu.models.blip_retrieval params {"visual", "text",
+    "vision_proj", "text_proj", "itm_head"} ->
+    clipcap_tpu_torch.models.blip_retrieval.BlipRetrieval. The text
+    encoder has no MLM head in the port: a "cls" subtree (JAX's random init
+    carries one, which no ranking reads) is left out."""
+    sd = {f"visual.{k}": v for k, v in vit_state_dict(params["visual"]).items()}
+    text = {k: v for k, v in params["text"].items() if k != "cls"}
+    sd.update({f"text.{k}": v for k, v in blip_text_state_dict(text).items()})
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        sd.update(_lin(name, params[name]["w"], params[name]["b"]))
+    return sd
+
+
+def _bn(prefix: str, p: dict) -> StateDict:
+    return {f"{prefix}.weight": np.asarray(p["g"]), f"{prefix}.bias": np.asarray(p["b"]),
+            f"{prefix}.running_mean": np.asarray(p["mean"]),
+            f"{prefix}.running_var": np.asarray(p["var"])}
+
+
+def clip_resnet_state_dict(params: dict) -> StateDict:
+    """clipcap_tpu.models.clip_resnet params -> clipcap_tpu_torch.models.
+    clip_resnet.ModifiedResNet (OpenAI's `visual.*` names without the
+    prefix; conv weights OIHW in both)."""
+    sd = {}
+    for i in (1, 2, 3):
+        sd[f"conv{i}.weight"] = np.asarray(params[f"conv{i}"])
+        sd.update(_bn(f"bn{i}", params[f"bn{i}"]))
+    for stage in range(1, 5):
+        for j, blk in enumerate(params[f"layer{stage}"]):
+            p = f"layer{stage}.{j}"
+            for i in (1, 2, 3):
+                sd[f"{p}.conv{i}.weight"] = np.asarray(blk[f"conv{i}"])
+                sd.update(_bn(f"{p}.bn{i}", blk[f"bn{i}"]))
+            if "downsample" in blk:
+                sd[f"{p}.downsample.0.weight"] = np.asarray(blk["downsample"]["conv"])
+                sd.update(_bn(f"{p}.downsample.1", blk["downsample"]["bn"]))
+    ap = params["attnpool"]
+    sd["attnpool.positional_embedding"] = np.asarray(ap["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd.update(_lin(f"attnpool.{name}", ap[name]["w"], ap[name]["b"]))
     return sd
 
 

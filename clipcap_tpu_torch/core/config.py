@@ -1,7 +1,8 @@
 """Configuration dataclasses of the captioning main path.
 
 The port's own copies of `MapperConfig`, `GPT2Config`, `GPTJConfig`,
-`T5Config`, `ViTConfig`, `CLIPTextConfig`, `CaptionerConfig` and `TrainConfig` from
+`T5Config`, `ViTConfig`, `CLIPTextConfig`, `BlipTextConfig`, `CaptionerConfig`
+and `TrainConfig` from
 clipcap_tpu/core/config.py, with the same fields,
 defaults and JSON round trip (a test holds the two in step). The port keeps
 its own copies because the JAX package's `core/__init__.py` imports JAX.
@@ -187,6 +188,23 @@ class CLIPTextConfig(_JsonMixin):
     heads: int = 8
     output_dim: int = 512
     layer_norm_epsilon: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class BlipTextConfig(_JsonMixin):
+    """BLIP's BERT-style text decoder/encoder with cross-attention: Gen-B
+    caption sampling (reference sampling.py:166-279) and ITM/ITC ranking
+    (reference sampling.py:40-62)."""
+
+    vocab_size: int = 30524  # bert-base + [DEC]/[ENC] special tokens
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    encoder_width: int = 768  # width of the vision features cross-attended to
+    layer_norm_epsilon: float = 1e-12
+    embed_dim: int = 256  # ITC projection width
 
 
 @dataclasses.dataclass(frozen=True)

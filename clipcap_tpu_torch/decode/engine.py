@@ -262,7 +262,7 @@ def complete_step(settings: GenerationSettings, next_token, alt_token, alt_prob,
 @torch.no_grad()
 def generate(
     lm,  # LM module implementing the lm/registry protocol
-    prompt_embeds: torch.Tensor,  # [B, P, D]
+    prompt_embeds: torch.Tensor,  # [B, P, D] embeddings, or [B, P] token ids
     settings: GenerationSettings,
     *,
     seed: int = 0,
@@ -273,6 +273,12 @@ def generate(
     """Generate settings.max_new_tokens tokens after prompt_embeds, on
     `device` (the card unless asked for the CPU; the LM and the prompt
     must already lie there).
+
+    When `lm.takes_token_ids` is set (the BLIP decoder adapter, whose
+    embedding layer owns positions and LayerNorm), `prompt_embeds` is a
+    [B, P] int tensor of token ids, each step feeds the emitted ids, and
+    the adapter picks its own cache dtype (JAX engine.py:240-251, :271-273,
+    :409-414).
 
     Returns a dict with tokens [B, N] int32 (pad_token_id after a row
     stops), lengths [B] (generated tokens incl. the stopping token),
@@ -304,7 +310,8 @@ def generate(
 
     rand = StepRandomness(seed, dev)
 
-    cache = lm.init_cache(b, p_len + n, dtype=prompt_embeds.dtype)
+    token_mode = bool(getattr(lm, "takes_token_ids", False))
+    cache = lm.init_cache(b, p_len + n, dtype=None if token_mode else prompt_embeds.dtype)
     prefill_logits, cache = lm.prefill(prompt_embeds, cache)
     last_logits = prefill_logits[:, -1].float()
 
@@ -332,7 +339,8 @@ def generate(
         eos_steps.append(eos_lp)
 
         if step + 1 < n:  # the last step's logits would go unused
-            step_in = lm.embed_tokens(emitted)[:, None, :].to(prompt_embeds.dtype)
+            step_in = (emitted[:, None] if token_mode
+                       else lm.embed_tokens(emitted)[:, None, :].to(prompt_embeds.dtype))
             logits_next, cache = lm.decode_step(step_in, cache)
             last_logits = logits_next.float()
 

@@ -1,5 +1,6 @@
 """Torch checkpoints -> the port's modules (port of the GPT-2, GPT-J, T5,
-mapper and CLIP converters of clipcap_tpu/tools/import_weights.py).
+mapper, CLIP, BLIP and CLIP ResNet converters of
+clipcap_tpu/tools/import_weights.py).
 
 The reference loads its models from torch checkpoints (HF `from_pretrained`
 at lms/GPT2.py:9, `clip.load` at train.py:206). Each converter here maps a
@@ -10,8 +11,8 @@ ready for `convert.load`: no JAX layout in between. Inputs are plain
 
 Layouts: torch nn.Linear stores [out, in], as the port's modules do, and is
 copied through; HF GPT-2's Conv1D stores [in, out] and is transposed; a
-patch Conv2d [D, C, P, P] becomes the per-patch linear [D, C*P*P]. The
-BLIP and ResNet converters come with their ROADMAP.md items.
+patch Conv2d [D, C, P, P] becomes the per-patch linear [D, C*P*P]; the
+ResNet's convolutions stay OIHW.
 """
 
 from __future__ import annotations
@@ -222,3 +223,97 @@ def clip_text_from_openai_state_dict(sd: Mapping, cfg) -> StateDict:
     for i in range(cfg.layers):
         out |= _prefixed(f"blocks.{i}", _openai_block(sd, f"transformer.resblocks.{i}."))
     return out
+
+
+# --- BLIP (reference sampling.py:330-351) --------------------------------------------------
+
+
+def blip_vit_from_hf_state_dict(sd: Mapping, cfg) -> StateDict:
+    """HF BlipVisionModel (keys `embeddings.*`, `encoder.layers.*`,
+    `post_layernorm.*`, bare or under `vision_model.`) -> models.vit.ViT
+    (style "blip")."""
+    p = "" if "embeddings.class_embedding" in sd else "vision_model."
+    out = {"patch.weight": _conv_patch_to_matmul(sd[p + "embeddings.patch_embedding.weight"]),
+           "patch.bias": _np(sd[p + "embeddings.patch_embedding.bias"]),
+           "cls": _np(sd[p + "embeddings.class_embedding"]).reshape(-1),
+           "pos": _np(sd[p + "embeddings.position_embedding"]).reshape(-1, cfg.width)}
+    out |= _norm("ln_post", p + "post_layernorm", sd)
+    for i in range(cfg.layers):
+        s = f"{p}encoder.layers.{i}."
+        out |= _prefixed(f"blocks.{i}", {
+            **_norm("ln1", s + "layer_norm1", sd), **_norm("ln2", s + "layer_norm2", sd),
+            **_linear("qkv", s + "self_attn.qkv", sd),
+            **_linear("out", s + "self_attn.projection", sd),
+            **_linear("fc1", s + "mlp.fc1", sd), **_linear("fc2", s + "mlp.fc2", sd)})
+    return out
+
+
+def blip_text_from_hf_state_dict(sd: Mapping, cfg, prefix: str = "") -> StateDict:
+    """HF BlipTextLMHeadModel or BlipTextModel state dict ->
+    models.blip_text.BlipText. `prefix` selects the submodel inside a larger
+    checkpoint ("text_decoder." in BlipForConditionalGeneration); both
+    "bert."-rooted LM-head checkpoints and bare text models are read. The
+    MLM head comes in when the state dict has one."""
+    b = prefix + "bert." if prefix + "bert.embeddings.word_embeddings.weight" in sd else prefix
+    out = _copy(sd, [("word_embeddings", b + "embeddings.word_embeddings.weight"),
+                     ("position_embeddings", b + "embeddings.position_embeddings.weight")])
+    out |= _norm("emb_ln", b + "embeddings.LayerNorm", sd)
+    for i in range(cfg.num_layers):
+        s = f"{b}encoder.layer.{i}."
+        blk = {}
+        for dst, src in (("self_attn", "attention"), ("cross_attn", "crossattention")):
+            for name, hf in (("wq", "query"), ("wk", "key"), ("wv", "value")):
+                blk |= _linear(f"{dst}.{name}", f"{s}{src}.self.{hf}", sd)
+            blk |= _linear(f"{dst}.wo", f"{s}{src}.output.dense", sd)
+            blk |= _norm(f"{dst}.ln", f"{s}{src}.output.LayerNorm", sd)
+        blk |= _linear("mlp.fc1", s + "intermediate.dense", sd)
+        blk |= _linear("mlp.fc2", s + "output.dense", sd)
+        blk |= _norm("mlp.ln", s + "output.LayerNorm", sd)
+        out |= _prefixed(f"blocks.{i}", blk)
+    c = prefix + "cls.predictions."
+    if c + "decoder.weight" in sd:
+        out |= _linear("cls_transform", c + "transform.dense", sd)
+        out |= _norm("cls_ln", c + "transform.LayerNorm", sd)
+        out |= _copy(sd, [("cls_decoder.weight", c + "decoder.weight"),
+                          ("cls_decoder.bias", c + "bias")])
+    return out
+
+
+def blip_retrieval_from_hf_state_dict(sd: Mapping, vit_cfg, text_cfg) -> StateDict:
+    """HF BlipForImageTextRetrieval -> models.blip_retrieval.BlipRetrieval
+    (the vision tower, the text encoder with cross-attention, and the ITM
+    and ITC heads)."""
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    out = _prefixed("visual", blip_vit_from_hf_state_dict(sub("vision_model."), vit_cfg))
+    text = blip_text_from_hf_state_dict(sub("text_encoder."), text_cfg)
+    out |= _prefixed("text", {k: v for k, v in text.items() if not k.startswith("cls_")})
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        out |= _linear(name, name, sd)
+    return out
+
+
+# --- CLIP ModifiedResNet (RN50 to RN50x64) ------------------------------------------------
+
+
+def clip_resnet_config_from_state_dict(sd: Mapping):
+    """The ResNetConfig of an OpenAI checkpoint, from its tensor shapes (as
+    clip.load derives it)."""
+    from ..models.clip_resnet import ResNetConfig
+
+    counts = tuple(len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{stage}.")})
+                   for stage in range(1, 5))
+    width = _np(sd["visual.conv3.weight"]).shape[0]
+    output_dim = _np(sd["visual.attnpool.c_proj.weight"]).shape[0]
+    spacial = int(round((_np(sd["visual.attnpool.positional_embedding"]).shape[0] - 1) ** 0.5))
+    return ResNetConfig(layers=counts, width=width, output_dim=output_dim,
+                        heads=width * 32 // 64, image_size=spacial * 32)
+
+
+def clip_resnet_from_openai_state_dict(sd: Mapping, cfg=None) -> StateDict:
+    """OpenAI CLIP checkpoint (keys `visual.*`) -> models.clip_resnet.
+    ModifiedResNet: its names without the prefix (BatchNorm's
+    num_batches_tracked dropped), every tensor as float32."""
+    return {k[len("visual."):]: _np(v) for k, v in sd.items()
+            if k.startswith("visual.") and not k.endswith("num_batches_tracked")}

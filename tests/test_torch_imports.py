@@ -53,6 +53,13 @@ PREPROCESS_MODULES = ["clipcap_tpu_torch.core.dtypes", "clipcap_tpu_torch.data.w
                       "clipcap_tpu_torch.tools.resize_images",
                       "clipcap_tpu_torch.tools.profile_decode"]
 
+# Gen B: the BLIP text model, retrieval heads, CLIP ResNet, WordPiece, the
+# heterogeneous sampler, the rankers and cascades, synthesis and caption_me
+GENB_MODULES = ["clipcap_tpu_torch.models.blip_text", "clipcap_tpu_torch.models.blip_retrieval",
+                "clipcap_tpu_torch.models.clip_resnet", "clipcap_tpu_torch.tokenizers.wordpiece",
+                "clipcap_tpu_torch.decode.hetero", "clipcap_tpu_torch.rank.cascade",
+                "clipcap_tpu_torch.cli.synthesis", "clipcap_tpu_torch.cli.caption_me"]
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import clipcap_tpu_torch
@@ -103,7 +110,7 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES):
+                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES):
         assert f"'{name}'" in out.stdout, name
 
 
@@ -182,7 +189,7 @@ def test_source_has_no_jax_or_jax_package_import():
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES):
+                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES):
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
@@ -198,7 +205,7 @@ def test_source_has_no_jax_or_jax_package_import():
 
 
 @pytest.mark.parametrize("name", ["MapperConfig", "GPT2Config", "GPTJConfig", "T5Config",
-                                  "ViTConfig",
+                                  "ViTConfig", "BlipTextConfig",
                                   "CaptionerConfig", "CLIPTextConfig", "TrainConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     a, b = getattr(jax_config, name), getattr(torch_config, name)
@@ -258,8 +265,9 @@ def test_vit_variants_match_jax(variant):
     b = torch_config.ViTConfig.clip_variant(variant)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
     assert (a.grid, a.seq_len) == (b.grid, b.seq_len)
-    assert (dataclasses.asdict(jax_config.ViTConfig.blip_variant("ViT-B"))
-            == dataclasses.asdict(torch_config.ViTConfig.blip_variant("ViT-B")))
+    for name in ("ViT-B", "ViT-L"):
+        assert (dataclasses.asdict(jax_config.ViTConfig.blip_variant(name))
+                == dataclasses.asdict(torch_config.ViTConfig.blip_variant(name)))
 
 
 def test_chip_smoke_fails_without_a_card():

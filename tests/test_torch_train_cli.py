@@ -6,7 +6,8 @@ cli.loading equal bit for bit to the trained parameters; a resume from
 `_latest` continues with the losses and parameters of the uninterrupted
 run, exactly; prefix_only leaves the LM bit for bit as it was; the visual
 encoder moves only under --train_visual_encoder; and the options one card
-cannot take, the BLIP converter and an Orbax directory raise."""
+cannot take and an Orbax directory raise. A BLIP --visual_checkpoint loads
+(tests/test_torch_genb_apps.py)."""
 
 import json
 import math
@@ -202,9 +203,7 @@ def test_coco_pixels_with_validation(world, tmp_path, train_visual):
 
 @pytest.mark.parametrize("extra,match", [
     (["--mesh_data", "2"], "item 12"), (["--mesh_model", "2"], "item 12"),
-    (["--zero_shard_params"], "item 12"),
-    (["--visual_encoder_type", "BLIP", "--visual_checkpoint", "x.pth",
-      "--image_folder_path", "x"], "item 11")])
+    (["--zero_shard_params"], "item 12")])
 def test_refused_options(world, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(_common(world, tmp_path, *extra))
