@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's captioning, serving, evaluation, preprocessing,
-Gen-B synthesis and training paths on one NVIDIA GPU.
+Gen-B synthesis, serving and apps, and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--xl_layers N] [--gptj_layers N] [--t0_layers N]
 
@@ -99,9 +99,9 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    bit-identical after the steps, a 2-layer cut's loss against the CPU;
 11. drives T0-11B (phase (k), after (j), before (m)): K2/K3/K4 against
    their plain versions at T0's vocabulary of 32128; the captioner (CLIP
-   ViT-B/32, the mapper at 4096, T5Config.variant("t0-11b") at 8 + 8 of
-   its 24 + 24 layers since phase (m) came, for the run's time,
-   --t0_layers 24 for all; 64 heads of 64, d_ff 10240, gated-gelu, untied
+   ViT-B/32, the mapper at 4096, T5Config.variant("t0-11b") at 6 + 6 of
+   its 24 + 24 layers since phase (n) came (8 + 8 since (m)), for the
+   run's time, --t0_layers 24 for all; 64 heads of 64, d_ff 10240, gated-gelu, untied
    lm_head) seeded
    on the card in bf16 and driven by token ids, K1 in a bf16 and an f32
    encode, a 2 + 2-layer cut held against the CPU (buckets, logits, the
@@ -148,7 +148,28 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    logits within 16 bf16 steps of f32's) and an int8 synthesis; per-step
    device ms, launches and busy share of both; (m5) `python -m
    clipcap_tpu_torch.cli.caption_me --mode CLIP-ViT-L` from the files;
-14. prints one JSON line of kernels, the card line, and last
+14. drives the rest of Gen B (phase (n), right after (m), on (m)'s files
+   and modules): (n1) K3 and K2 at BLIP serving's [64, 30524] (top-k 2500,
+   top-p 0.5, penalty 1.3, min-length gate, eos [SEP]) against their plain
+   versions, timed, and K1 at [16, 577, 16, 64] against its plain
+   version; (n2) the BLIP captioner behind ServingEngine
+   (serving_decoder_lm, token ids): 16 images encoded on the card (K1 at
+   [16, 577, 16, 64]), 128 requests with the default grid's caps on 64
+   slots, greedy, "fused" (K2) and "fused_step" (K3) with Gen B's knobs,
+   the launch counters set to 0 before the encode and read after the
+   serves; greedy requests against their solo decoder_lm runs, a
+   no-refill "fused_step" serve against generate(seed), the 2-layer cut's
+   ring steps against the CPU, one K2/K3 launch a dispatched step, and a
+   ring step's device time split by op and input shape; (n3) BLIP beam
+   search, 8 images x beam 3 x 30 tokens, the cut's best beams against the
+   CPU's; (n4) cli.sweep.main over configs/sweep_bayes_01.yaml's space
+   with its mode pinned to CLIP-ViT-L (2 trials, 4 images), (n5)
+   cli.human_eval.main's plain packet and the multi-filter one through
+   prepare_human_eval with the retrieval model as BLIP ranker, (n6) Gumbel
+   caption optimization on the retrieval model (one step against the CPU,
+   50 steps timed), the counters set to 0 before (n4) and read after (n6);
+   then K2 against its plain version at each sweep trial's shape;
+15. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -777,8 +798,11 @@ def check_sampler(torch, FS, S, vocab: int = 50257, sampler_rows=SAMPLER_ROWS,
 
 
 def greedy_with_gaps(torch, lm, prompt, n: int):
-    """Greedy tokens and each step's top-2 logit gap, by prefill/decode_step."""
-    cache = lm.init_cache(prompt.shape[0], prompt.shape[1] + n, dtype=prompt.dtype)
+    """Greedy tokens and each step's top-2 logit gap, by prefill/decode_step
+    (a token-id LM, BLIP's decoder_lm, takes an id prompt and is fed ids)."""
+    ids = getattr(lm, "takes_token_ids", False)
+    cache = lm.init_cache(prompt.shape[0], prompt.shape[1] + n,
+                          dtype=None if ids else prompt.dtype)
     logits, cache = lm.prefill(prompt, cache)
     logits = logits[:, -1]
     toks, gaps = [], []
@@ -788,7 +812,8 @@ def greedy_with_gaps(torch, lm, prompt, n: int):
         tok = torch.argmax(logits, dim=-1)
         toks.append(tok)
         if step + 1 < n:
-            logits, cache = lm.decode_step(lm.embed_tokens(tok)[:, None], cache)
+            logits, cache = lm.decode_step(tok[:, None] if ids else lm.embed_tokens(tok)[:, None],
+                                           cache)
     return torch.stack(toks, 1), torch.stack(gaps, 1)
 
 
@@ -1123,7 +1148,8 @@ def write_jpegs(folder: Path, n: int, seed: int) -> None:
         Image.fromarray(img).save(folder / f"img{i:03d}.jpg", quality=90)
 
 
-def traced_beam(torch, lm, prompt, device: str, stop: int = STOP):
+def traced_beam(torch, lm, prompt, device: str, stop: int = STOP, beam: int = BEAM,
+                new: int = BEAM_NEW):
     """decode/beam.py's beam_search_batched with each step's selection
     recorded: every call of its _topk_iter takes one pick more than asked
     (the first picks do not change), so each step also gives the gap
@@ -1140,7 +1166,7 @@ def traced_beam(torch, lm, prompt, device: str, stop: int = STOP):
 
     B._topk_iter = topk_and_next
     try:
-        out = B.beam_search_batched(lm, prompt, beam_size=BEAM, max_new_tokens=BEAM_NEW,
+        out = B.beam_search_batched(lm, prompt, beam_size=beam, max_new_tokens=new,
                                     stop_token_id=stop, device=device)
     finally:
         B._topk_iter = real
@@ -3090,9 +3116,9 @@ T0_EOS, T0_STOP = 1, 5  # T5's </s>; a fixed id standing for "."
 T0_WORDS = 32100  # the tokenizer.json's vocabulary, T0's (its 28 padding rows decode to nothing)
 T0_CUT_SOLO = 8  # the cut's served requests held against their solo runs
 # T0-11B's depth in (k), of its 24 + 24 layers: cut to 8 + 8 for the run's
-# time since phase (m) came (the decode paths are per layer the same at any
-# depth); --t0_layers 24 runs it whole
-T0_LAYERS = 8
+# time when phase (m) came, to 6 + 6 when phase (n) came (the decode paths
+# are per layer the same at any depth); --t0_layers 24 runs it whole
+T0_LAYERS = 6
 
 
 class T5IdTokenizer:
@@ -4081,11 +4107,14 @@ def clip_resnet_openai_state_dict(torch, rn_cfg, seed: int) -> dict:
     return {**sd, **text}
 
 
-def check_sampler_genb(torch, FS, S) -> dict:
-    """(m1) K2 at the synthesis step's shape, [40, 30524]: seeded logits
-    after a 1.3 repetition penalty over a 12-token history, top-k 2500 and
-    the default grid's per-row top-p (each moved to mid-gap, as
-    check_sampler does), injected noise: next and alt exact, alt_prob within
+def check_sampler_genb(torch, FS, S, rows: int = GENB_CANDIDATES, top_k: float = 2500.0,
+                       top_p=None, label: str = "(m1)") -> dict:
+    """K2 at a synthesis step's shape, [rows, 30524] ((m1): the default
+    40-slot grid; (n4): each sweep trial's batch size, top-k and top-p):
+    seeded logits after a 1.3 repetition penalty over a 12-token history,
+    top-k `top_k` and the per-row top-p (the default grid's, or `top_p` on
+    every row; each moved to mid-gap, as check_sampler does), injected
+    noise: next and alt exact, alt_prob within
     SAMPLER_RTOL of the plain version; the per-row numpy vectors that
     hetero.sample hands the engine give the same draws as tensors; Philox
     draws inside the plain filter's kept set; then the device times of the
@@ -4095,50 +4124,52 @@ def check_sampler_genb(torch, FS, S) -> dict:
 
     from clipcap_tpu_torch.cli.synthesis import default_grids
 
-    rows, vocab = GENB_CANDIDATES, GENB_VOCAB
+    vocab = GENB_VOCAB
     FS._check_vocab(vocab)
     gen = torch.Generator(device="cuda").manual_seed(41)
     raw = torch.randn(rows, vocab, generator=gen, device="cuda") * 3
     hist = torch.randint(0, vocab, (rows, 12), generator=gen, device="cuda")
     x = S.repetition_penalty(raw, hist, 1.3).contiguous()
-    grid = torch.tensor(default_grids(n=rows)[0], device="cuda")
-    kk = FS.resolve_top_k(2500.0, rows, vocab, "cuda")
+    grid = torch.tensor(default_grids(n=rows)[0] if top_p is None
+                        else np.full(rows, top_p, np.float32), device="cuda")
+    kk = FS.resolve_top_k(top_k, rows, vocab, "cuda")
     pp, gap = mid_gap_top_p(torch, FS, x, kk, grid)
     noise = S.gumbel_like(x, gen)
-    got = FS.fused_filter_sample(x, 2500.0, pp, 7, gumbel_noise=noise)
+    got = FS.fused_filter_sample(x, top_k, pp, 7, gumbel_noise=noise)
     want = FS.sampler_plain(x, kk, pp, 7, do_topk=True, do_topp=True, want_alt_prob=True,
                             gumbel_noise=noise)
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          f"(m1) K2 [{rows}, {vocab}]: next or alt differs from the plain version")
-    err = assert_close(torch, got[2], want[2], 1e-7, SAMPLER_RTOL, "(m1) K2 alt_prob")
-    as_np = FS.fused_filter_sample(x, np.full(rows, 2500.0, np.float32),
+          f"{label} K2 [{rows}, {vocab}]: next or alt differs from the plain version")
+    err = assert_close(torch, got[2], want[2], 1e-7, SAMPLER_RTOL, f"{label} K2 alt_prob")
+    as_np = FS.fused_filter_sample(x, np.full(rows, top_k, np.float32),
                                    pp.cpu().numpy(), 7, gumbel_noise=noise)
     check(all(torch.equal(a, b) for a, b in zip(as_np, got)),
-          "(m1) K2 with hetero's numpy per-row vectors differs from tensors")
+          f"{label} K2 with hetero's numpy per-row vectors differs from tensors")
     kept = torch.isfinite(FS.fused_filter_plain(x, kk, pp))
     for seed in (11, 12, 13):
-        nxt, _, _ = FS.fused_filter_sample(x, 2500.0, pp, seed)
+        nxt, _, _ = FS.fused_filter_sample(x, top_k, pp, seed)
         check(bool(kept[torch.arange(rows, device="cuda"), nxt.long()].all()),
-              f"(m1) K2 [{rows}, {vocab}] with Philox sampled a filtered token")
+              f"{label} K2 [{rows}, {vocab}] with Philox sampled a filtered token")
     cluster = FS.cluster_size(rows, vocab)
 
     def k2():
-        return FS.fused_filter_sample(x, 2500.0, grid, 5, want_alt_prob=False)
+        return FS.fused_filter_sample(x, top_k, grid, 5, want_alt_prob=False)
 
     ms = device_ms(torch, k2, kernel="sampler_kernel")
     wall_ms = time_ms(torch, k2)
     plain_ms = device_ms(torch, lambda: FS.sampler_plain(x, kk, grid, 5, do_topk=True,
                                                          do_topp=True, want_alt_prob=False), 5)
     bound_ms, bound_by = sampler_bound(rows, vocab, prologue=False, topk=True)
-    say(f"(m1) K2 [{rows}, {vocab}] (top-k 2500, the grid's top-p per row, after a 1.3 "
+    what = "the grid's top-p per row" if top_p is None else f"top-p {top_p:.4f} on every row"
+    say(f"{label} K2 [{rows}, {vocab}] (top-k {top_k:g}, {what}, after a 1.3 "
         f"repetition penalty), cluster of {cluster} blocks per row: next/alt exact with injected "
         f"noise, alt_prob max abs err {err:.3e} (rtol {SAMPLER_RTOL}), numpy per-row vectors "
         f"taken unchanged, Philox inside the kept set (top-p moved to mid-gap: nearest cumulative "
         f"mass {gap:.2e} relative away); device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
         f"bound {bound_ms:.4f} ({bound_by}); wrapper wall {wall_ms:.4f}")
-    return dict(shape=[rows, vocab], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, cluster=cluster,
-                wall_ms=wall_ms)
+    return dict(shape=[rows, vocab], top_k=top_k, top_p=top_p, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                cluster=cluster, wall_ms=wall_ms)
 
 
 def blip_text_cut(text, n_layer: int):
@@ -4311,7 +4342,10 @@ def genb_path(torch, counters, FA, FS, S, card: str, work: Path) -> tuple:
     synthesis and read after the ranking; the rankers' scores against the
     port on the CPU; (m3) enable_int8_decode: q and s equal the CPU's, the
     int8 logits near f32's, an int8 synthesis; (m5) `python -m
-    clipcap_tpu_torch.cli.caption_me` from the files on disk."""
+    clipcap_tpu_torch.cli.caption_me` from the files on disk. Returns the
+    launches, the rates and the handles phase (n) goes on from: the
+    files' folder, the f32 decoder, the encoder, the tokenizer and the
+    retrieval model."""
     import math
 
     import numpy as np
@@ -4526,6 +4560,9 @@ def genb_path(torch, counters, FA, FS, S, card: str, work: Path) -> tuple:
                                    decode_ms=synth8_ms - encode_ms, ms_per_image=synth8_ms,
                                    logits_max_abs_err=err8, logits_scale=scale, **prof8)
     figure_line(card, "genb_synthesis_int8", rates["synthesis_int8"])
+    # phase (n) goes on from the f32 decoder, the retrieval model and the files
+    handles = dict(root=root, text=text, visual=blip_params["visual"], vit_cfg=vit_cfg, tok=tok,
+                   retrieval=retrieval, ret_text=ret_text, image_path=image_path)
     del engine, blip_params, text, q8, rankers, retrieval, feats, enc, logits
     torch.cuda.empty_cache()
 
@@ -4545,9 +4582,557 @@ def genb_path(torch, counters, FA, FS, S, card: str, work: Path) -> tuple:
     say(f"(m5) python -m clipcap_tpu_torch.cli.caption_me --mode CLIP-ViT-L from the files on "
         f"disk: exit 0 in {cli_s:.1f} s; " + " | ".join(x[:80] for x in lines[-4:]))
     rates["cli_s"] = cli_s
-    shutil.rmtree(root, ignore_errors=True)
     say(f"Gen-B phase (m): {time.perf_counter() - t_phase:.1f} s")
+    return launches, rates, handles
+
+
+# --- 14. the rest of Gen B: BLIP served, BLIP beam, the sweep, human eval, Gumbel -------
+
+GENB_SLOTS, GENB_REQUESTS, GENB_IMAGES, GENB_SYNC = 64, 128, 16, 8
+GENB_SOLO = 8  # greedy requests held against their solo decoder_lm runs on the card
+GENB_TOP_K, GENB_TOP_P, GENB_PENALTY, GENB_MIN_LEN = 2500.0, 0.5, 1.3, 5
+GENB_BEAM_IMAGES, GENB_BEAM, GENB_BEAM_NEW = 8, 3, 30
+GENB_OP_STEPS = 2  # ring steps whose device time is split by op and shape
+SWEEP_TRIALS, SWEEP_N, SWEEP_IMAGES, HUMAN_EVAL_N = 2, 4, 8, 4
+GUMBEL_LEN, GUMBEL_STEPS, GUMBEL_LR = 12, 50, 0.1
+
+
+def check_sampler_genb_serving(torch, FS, S) -> dict:
+    """(n1) K3 and K2 at BLIP serving's step shape, [64, 30524]: seeded
+    logits, top-k 2500 and top-p 0.5 (each row's moved to mid-gap, as
+    check_sampler does), K3's prologue with a 1.3 penalty over a 24-token
+    history, the min-length eos gate on half the rows and eos = [SEP],
+    injected noise: next and alt exact, alt_prob and eos_lp within
+    SAMPLER_RTOL of the plain version, Philox inside the kept set; then the
+    device times of each kernel at serving's flags (scalar top-k and top-p,
+    no alt_prob), the plain version and the bound, and the cluster size."""
+    rows, vocab, eos = GENB_SLOTS, GENB_VOCAB, GENB_EOS
+    FS._check_vocab(vocab)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randn(rows, vocab, generator=gen, device="cuda") * 3
+    hist = torch.randint(0, vocab, (rows, 24), generator=gen, device="cuda")
+    appears = S.token_occurrence_mask(hist, vocab)
+    suppress = torch.arange(rows, device="cuda") % 2 == 0
+    noise = S.gumbel_like(x, gen)
+    kk = FS.resolve_top_k(GENB_TOP_K, rows, vocab, "cuda")
+    p = torch.full((rows,), GENB_TOP_P, device="cuda")
+    pp3, gap3 = mid_gap_top_p(torch, FS, prologue_plain(torch, x, appears, suppress,
+                                                        GENB_PENALTY, 1.0, eos), kk, p)
+    pp2, gap2 = mid_gap_top_p(torch, FS, x, kk, p)
+    step = dict(appears=appears, penalty=GENB_PENALTY, temperature=1.0, eos_token_id=eos,
+                suppress_eos=suppress, want_eos_lp=True)
+    plain_step = dict(appears=appears.view(torch.int8), penalty=GENB_PENALTY, temperature=1.0,
+                      eos_token_id=eos, suppress_eos=suppress.float(), want_eos_lp=True)
+    got = FS.fused_step_sample(x, GENB_TOP_K, pp3, 9, gumbel_noise=noise, **step)
+    want = FS.sampler_plain(x, kk, pp3, 9, do_topk=True, do_topp=True, want_alt_prob=True,
+                            gumbel_noise=noise, **plain_step)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"(n1) K3 [{rows}, {vocab}]: next or alt differs from the plain version")
+    err3 = max(assert_close(torch, got[2], want[2], 1e-7, SAMPLER_RTOL, "(n1) K3 alt_prob"),
+               assert_close(torch, got[3], want[3], 1e-6, SAMPLER_RTOL, "(n1) K3 eos_lp"))
+    got = FS.fused_filter_sample(x, GENB_TOP_K, pp2, 7, gumbel_noise=noise)
+    want = FS.sampler_plain(x, kk, pp2, 7, do_topk=True, do_topp=True, want_alt_prob=True,
+                            gumbel_noise=noise)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"(n1) K2 [{rows}, {vocab}]: next or alt differs from the plain version")
+    err2 = assert_close(torch, got[2], want[2], 1e-7, SAMPLER_RTOL, "(n1) K2 alt_prob")
+    kept = torch.isfinite(FS.fused_filter_plain(x, kk, pp2))
+    for seed in (11, 12):
+        nxt, _, _ = FS.fused_filter_sample(x, GENB_TOP_K, pp2, seed)
+        check(bool(kept[torch.arange(rows, device="cuda"), nxt.long()].all()),
+              f"(n1) K2 [{rows}, {vocab}] with Philox sampled a filtered token")
+    cluster = FS.cluster_size(rows, vocab)
+    timed = {
+        "fused_step_sample": (
+            lambda: FS.fused_step_sample(x, GENB_TOP_K, GENB_TOP_P, 5, want_alt_prob=False,
+                                         **step),
+            lambda: FS.sampler_plain(x, kk, p, 5, do_topk=True, do_topp=True,
+                                     want_alt_prob=False, **plain_step), True, err3),
+        "fused_filter_sample": (
+            lambda: FS.fused_filter_sample(x, GENB_TOP_K, GENB_TOP_P, 5, want_alt_prob=False),
+            lambda: FS.sampler_plain(x, kk, p, 5, do_topk=True, do_topp=True,
+                                     want_alt_prob=False), False, err2)}
+    out = {}
+    for name, (fn, plain, prologue, err) in timed.items():
+        ms = device_ms(torch, fn, kernel="sampler_kernel")
+        wall_ms = time_ms(torch, fn)
+        plain_ms = device_ms(torch, plain, 5)
+        bound_ms, bound_by = sampler_bound(rows, vocab, prologue=prologue, topk=True)
+        out[name] = dict(shape=[rows, vocab], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, cluster=cluster,
+                         wall_ms=wall_ms)
+    k3, k2 = out["fused_step_sample"], out["fused_filter_sample"]
+    say(f"(n1) K3 and K2 [{rows}, {vocab}] (top-k {GENB_TOP_K:g}, top-p {GENB_TOP_P}; K3's "
+        f"penalty {GENB_PENALTY}, min-length gate on half the rows, eos [SEP]), cluster of "
+        f"{cluster} blocks per row: next/alt exact with injected noise, alt_prob/eos_lp max abs "
+        f"err K3 {err3:.3e}, K2 {err2:.3e} (rtol {SAMPLER_RTOL}), Philox inside the kept set "
+        f"(top-p moved to mid-gap: nearest cumulative mass {min(gap2, gap3):.2e} relative away); "
+        f"device ms: K3 {k3['ms']:.4f} (plain {k3['plain_ms']:.4f}, bound {k3['bound_ms']:.4f} "
+        f"{k3['bound_by']}), K2 {k2['ms']:.4f} (plain {k2['plain_ms']:.4f}, bound "
+        f"{k2['bound_ms']:.4f} {k2['bound_by']}); wrapper wall K3 {k3['wall_ms']:.4f}, K2 "
+        f"{k2['wall_ms']:.4f}")
+    return out
+
+
+def check_blip_ring_cut(torch, cut, feats, prompt_ids) -> float:
+    """(n2) The decoder's GENB_CUT-layer cut behind serving_decoder_lm on
+    the card against the port on the CPU (f32, the same tensors): four
+    requests prefilled into a ring of prompt + 6 + 1 positions, ring steps
+    at per-row positions, a one-row refill at slot 2 and steps until the
+    global index has wrapped the ring, every step's logits within
+    CARD_VS_CPU. Returns the largest error."""
+    from clipcap_tpu_torch.models.blip_text import serving_decoder_lm
+
+    tv, p = feats.shape[1], len(prompt_ids)
+    ring = p + 6 + 1
+    cpu = copy.deepcopy(cut).cpu()
+    sides = {"card": (serving_decoder_lm(cut, prompt_ids, tv, device="cuda"), "cuda"),
+             "cpu": (serving_decoder_lm(cpu, prompt_ids, tv, device="cpu"), "cpu")}
+    state = {}
+    with torch.no_grad():
+        for side, (lm, dev) in sides.items():
+            logits, cache = lm.prefill(feats[:4].to(dev), lm.init_cache(4, ring))
+            state[side] = [lm, cache, logits[:, -1], dev]
+        worst = assert_close(torch, state["card"][2].cpu(), state["cpu"][2], *CARD_VS_CPU,
+                             "(n2) ring cut prefill logits card vs CPU")
+        pos, start = torch.full((4,), p), torch.zeros(4, dtype=torch.int64)
+        ids = torch.randint(0, GENB_VOCAB, (12, 4), generator=torch.Generator().manual_seed(62))
+        for step in range(12):
+            if step == 3:
+                for lm, cache, _, dev in state.values():
+                    _, small = lm.prefill(feats[4:5].to(dev), lm.init_cache(1, p))
+                    lm.scatter_refill(cache, small, 2)
+                pos[2], start[2] = p, state["cpu"][1].index - p
+            for st in state.values():
+                lm, cache, _, dev = st
+                st[2], st[1] = lm.decode_step_ring(ids[step][:, None].to(dev), cache,
+                                                   pos.to(dev), start.to(dev))
+            worst = max(worst, assert_close(torch, state["card"][2].cpu(), state["cpu"][2],
+                                            *CARD_VS_CPU, f"(n2) ring cut step {step} card vs CPU"))
+            pos += 1
+        check(state["cpu"][1].index > ring, "(n2) the ring cut's index did not wrap the ring")
+    del cpu, state
+    return worst
+
+
+def genb_serving_path(torch, counters, card: str, handles: dict) -> tuple:
+    """(n2) the BLIP captioner behind ServingEngine (serving_decoder_lm,
+    token-id mode) at full width: 128 requests from a pool of 16 images'
+    ViT-L/16 features (encoded on the card, K1 at [16, 577, 16, 64]),
+    per-request caps from the default grid's (20-45), 64 slots, 8 steps a
+    sync: greedy, top-k 2500 / top-p 0.5 "fused" (K2) and "fused_step" (K3)
+    with Gen B's knobs (penalty 1.3, min length 5, force-eos 0.9). The
+    launch counters are set to 0 before the encode and read after the three
+    serves. Checks: every request answered within its cap; K2 or K3 once a
+    dispatched step; the first 8 greedy requests against their solo
+    decoder_lm + generate runs on the card (near-tie flips by (e1)'s gap
+    rule); a "fused_step" serve of 64 requests on 64 slots (no refill)
+    against generate(seed) with "fused_step", token for token; the ring
+    step of the 2-layer cut against the CPU. (n3) beam search of 8 images x
+    beam 3 x 30 tokens through decoder_lm, the best beams of the cut against
+    the CPU's."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from clipcap_tpu_torch.cli.synthesis import default_grids
+    from clipcap_tpu_torch.data.preprocessing import normalize_on_device
+    from clipcap_tpu_torch.decode.beam import beam_search_batched
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.decode.serving import Request, ServingEngine
+    from clipcap_tpu_torch.models.blip_text import decoder_lm, serving_decoder_lm
+
+    text, visual, vit_cfg, tok = (handles[k] for k in ("text", "visual", "vit_cfg", "tok"))
+    ids = tok.encode("a picture of ")
+    prompt_ids = [tok.bos_token_id] + ids[1:-1]  # hetero.sample's prompt
+    tv = vit_cfg.seq_len
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    pixels = normalize_on_device(torch.rand(GENB_IMAGES, 3, vit_cfg.image_size,
+                                            vit_cfg.image_size, generator=gen, device="cuda"))
+    caps = default_grids(n=GENB_REQUESTS)[2].astype(int).tolist()
+    n_new = max(caps) + 1
+    reqs = [Request(i, i % GENB_IMAGES, max_length=c) for i, c in enumerate(caps)]
+    base = GenerationSettings(max_new_tokens=n_new, eos_token_id=GENB_EOS)
+    sampled = dict(top_k=GENB_TOP_K, top_p=GENB_TOP_P)
+    runs = {"n2a": ("greedy", dataclasses.replace(base, greedy=True), None),
+            "n2b": (f'top-k {GENB_TOP_K:g}, top-p {GENB_TOP_P}, "fused"',
+                    dataclasses.replace(base, **sampled), "fused_filter_sample"),
+            "n2c": (f'top-k {GENB_TOP_K:g}, top-p {GENB_TOP_P}, "fused_step", penalty '
+                    f'{GENB_PENALTY}, min length {GENB_MIN_LEN}, force-eos 0.9',
+                    dataclasses.replace(base, **sampled, repetition_penalty=GENB_PENALTY,
+                                        min_length=GENB_MIN_LEN,
+                                        force_eos_log_prob=math.log(0.9),
+                                        filter_method="fused_step"), "fused_step_sample")}
+    lm = serving_decoder_lm(text, prompt_ids, tv, device="cuda")
+    engines = {name: ServingEngine(lm, text.cfg, prefix_len=tv, prompt_len=len(prompt_ids),
+                                   settings=s, slots=GENB_SLOTS, steps_per_sync=GENB_SYNC,
+                                   pipeline_depth=2, device="cuda").warmup()
+               for name, (_, s, _) in runs.items()}
+    with torch.no_grad():
+        visual(pixels[:2], output="tokens")  # the encoder's warm-up, at another batch
+    torch.cuda.synchronize()
+
+    counters(reset=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pool = visual(pixels, output="tokens")
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    k1_encode = counters()["fused_attention"]
+    served = {}
+    for name in runs:
+        before = counters()
+        t0 = time.perf_counter()
+        res = engines[name].serve(reqs, seed=7, prefix_pool=pool)
+        wall = time.perf_counter() - t0
+        after = counters()
+        served[name] = (res, wall, {k: after[k] - before[k] for k in after},
+                        engines[name].last_stats)
+    launches = counters()
+    check(tuple(pool.shape) == (GENB_IMAGES, tv, vit_cfg.width) and k1_encode == vit_cfg.layers,
+          f"(n2) encode: features {tuple(pool.shape)}, K1 {k1_encode} launches (want "
+          f"{vit_cfg.layers})")
+
+    rates = {"encode_ms": encode_ms}
+    for name, (desc, settings, kernel) in runs.items():
+        res, wall, rise, stats = served[name]
+        check(sorted(res) == list(range(GENB_REQUESTS)), f"({name}) not every request answered")
+        for i, r in res.items():
+            check(0 < len(r["tokens"]) <= caps[i] and r["length"] == len(r["tokens"])
+                  and all(0 <= t < GENB_VOCAB for t in r["tokens"]),
+                  f"({name}) request {i}: {len(r['tokens'])} tokens, cap {caps[i]}")
+        for k in ("fused_filter_sample", "fused_step_sample"):
+            want = stats["steps"] if k == kernel else 0
+            check(rise[k] == want, f"({name}) {k} launched {rise[k]} times over "
+                  f"{stats['steps']} dispatched steps, want {want}")
+        lat = np.asarray([r["latency_s"] for r in res.values()])
+        rates[name] = dict(captions_per_s=GENB_REQUESTS / wall, wall_s=wall,
+                           p50_s=float(np.percentile(lat, 50)),
+                           p99_s=float(np.percentile(lat, 99)), occupancy=stats["occupancy"],
+                           steps=stats["steps"], refills=sum(stats["refills"].values()),
+                           ms_per_step=wall * 1e3 / stats["steps"])
+        say(f"({name}) serve {GENB_REQUESTS} BLIP requests ({desc}; caps {min(caps)}-{max(caps)}, "
+            f"prompt of {len(prompt_ids)} ids, {tv} image tokens), {GENB_SLOTS} slots, "
+            f"steps_per_sync {GENB_SYNC}, pipeline_depth 2: {rates[name]['captions_per_s']:.2f} "
+            f"captions/s; latency_s p50 {rates[name]['p50_s']:.4f}, p99 "
+            f"{rates[name]['p99_s']:.4f}; occupancy {stats['occupancy']}; {stats['steps']} "
+            f"steps ({rates[name]['ms_per_step']:.2f} ms a step); {rates[name]['refills']} "
+            f"refills; host: chunk dispatch {stats['dispatch_s']:.3f} s, refill dispatch "
+            f"{stats['refill_dispatch_s']:.3f} s, harvest wait {stats['harvest_wait_s']:.3f} s; "
+            f"K2 +{rise['fused_filter_sample']}, K3 +{rise['fused_step_sample']}")
+    check(all(GENB_EOS not in r["tokens"][:GENB_MIN_LEN] for r in served["n2c"][0].values()),
+          "(n2c) eos emitted before min length")
+
+    # the first greedy requests against their solo runs on the card
+    t0 = time.perf_counter()
+    flips = 0
+    greedy = runs["n2a"][1]
+    prompt = torch.tensor([prompt_ids], device="cuda")
+    for i in range(GENB_SOLO):
+        solo = decoder_lm(text, pool[i % GENB_IMAGES: i % GENB_IMAGES + 1])
+        ref = generate(solo, prompt, dataclasses.replace(greedy, max_length=caps[i]),
+                       device="cuda")
+        want = ref["tokens"][0, : int(ref["lengths"][0])].tolist()
+        got = served["n2a"][0][i]["tokens"]
+        if got != want:
+            s = first_difference(got, want)
+            _, gaps = greedy_with_gaps(torch, solo, prompt, n_new)
+            gap = float(gaps[0, s])
+            check(gap < FLIP_GAP, f"(n2a) request {i} differs from its solo run at step {s} "
+                  f"where the solo top-2 gap is {gap:.3e} (>= {FLIP_GAP})")
+            flips += 1
+    # no refill: 64 requests on 64 slots against generate(seed) with "fused_step"
+    first = reqs[:GENB_SLOTS]
+    got = engines["n2c"].serve(first, seed=11, prefix_pool=pool)
+    check(not engines["n2c"].last_stats["refills"], "(n2c) the 64-request serve refilled")
+    rows = torch.tensor([r.prefix_embeds for r in first], device="cuda")
+    ref = generate(decoder_lm(text, pool[rows]),
+                   torch.tensor([prompt_ids] * GENB_SLOTS, device="cuda"),
+                   dataclasses.replace(runs["n2c"][1],
+                                       max_length=np.asarray(caps[:GENB_SLOTS], np.int64)),
+                   seed=11, device="cuda")
+    lengths = ref["lengths"].tolist()
+    differ = [i for i in range(GENB_SLOTS)
+              if got[i]["tokens"] != ref["tokens"][i, : lengths[i]].tolist()
+              or got[i]["stopped"] != bool(ref["stopped"][i])]
+    check(not differ, f"(n2c) the no-refill serve differs from generate(seed) with "
+          f"\"fused_step\" for requests {differ[:8]}")
+    cut_err = check_blip_ring_cut(torch, blip_text_cut(text, GENB_CUT), pool, prompt_ids)
+    say(f"(n2) checks: the first {GENB_SOLO} greedy requests equal their solo decoder_lm runs "
+        f"(near-tie flips: {flips}); {GENB_SLOTS} requests on {GENB_SLOTS} slots with "
+        f"\"fused_step\" equal generate(seed) token for token; K2/K3 once a dispatched step; "
+        f"the {GENB_CUT}-layer cut's ring steps (a refill, a wrap) within {cut_err:.3e} of the "
+        f"CPU (bound {CARD_VS_CPU[0]}); no eos before min length "
+        f"({time.perf_counter() - t0:.1f} s)")
+    prof = profile_call(torch, "(n2c)", lambda: engines["n2c"].serve(reqs, seed=7,
+                                                                     prefix_pool=pool),
+                        served["n2c"][1] * 1e3)
+    steps = served["n2c"][3]["steps"]
+    rates["n2c"].update(device_ms_per_step=prof["busy_ms"] / steps,
+                        launches_per_step=prof["launches"] / steps,
+                        busy_share=prof["busy_ms"] / prof["wall_ms"])
+    # which host ops own a step's device time: ring steps of the 64 slots
+    # through the adapter alone, with their input shapes
+    ring = lm.init_cache(GENB_SLOTS, len(prompt_ids) + n_new + 1)
+    _, ring = lm.prefill(pool[torch.arange(GENB_SLOTS, device="cuda") % GENB_IMAGES], ring)
+    step_ids = torch.zeros(GENB_SLOTS, 1, dtype=torch.int64, device="cuda")
+    step_pos = torch.full((GENB_SLOTS,), len(prompt_ids), dtype=torch.int64, device="cuda")
+    step_start = torch.zeros(GENB_SLOTS, dtype=torch.int64, device="cuda")
+    lm.decode_step_ring(step_ids, ring, step_pos, step_start)  # warm-up
+    rates["n2c"]["ring_step_ops"] = op_shape_profile(
+        torch, f"(n2c) {GENB_OP_STEPS} ring steps of the {GENB_SLOTS} slots (the adapter alone)",
+        lambda: [lm.decode_step_ring(step_ids, ring, step_pos, step_start)
+                 for _ in range(GENB_OP_STEPS)], GENB_OP_STEPS)
+    del ring
+    rates["greedy_flips"], rates["ring_cut_max_abs_err"] = flips, cut_err
+    for name in runs:
+        figure_line(card, f"genb_serving_{name}", rates[name])
+    del engines
+
+    # (n3) beam search through decoder_lm: 8 images x beam 3 x 30 tokens
+    t0 = time.perf_counter()
+    prompt = torch.tensor([prompt_ids] * GENB_BEAM_IMAGES, device="cuda")
+    feats = pool[:GENB_BEAM_IMAGES]
+
+    def beam(n):
+        return beam_search_batched(decoder_lm(text, feats), prompt, beam_size=GENB_BEAM,
+                                   max_new_tokens=n, stop_token_id=GENB_EOS, device="cuda")
+
+    beam(GENB_BEAM_NEW)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = beam(GENB_BEAM_NEW)
+    torch.cuda.synchronize()
+    beam_ms = (time.perf_counter() - t1) * 1e3
+    check(bool(torch.isfinite(out["scores"]).all())
+          and tuple(out["tokens"].shape) == (GENB_BEAM_IMAGES, GENB_BEAM, GENB_BEAM_NEW),
+          f"(n3) beam result {tuple(out['tokens'].shape)} malformed")
+    prof = per_step_profile(torch, "(n3) BLIP beam", beam, 11, GENB_BEAM_NEW)
+    # the 2-layer cut's best beams against the CPU's, up to the CPU's selection gap
+    cut = blip_text_cut(text, GENB_CUT)
+    card_out, card_sel, _ = traced_beam(torch, decoder_lm(cut, feats[:2]), prompt[:2], "cuda",
+                                        GENB_EOS, GENB_BEAM, GENB_BEAM_NEW)
+    cpu_cut = copy.deepcopy(cut).cpu()
+    cpu_out, cpu_sel, cpu_gaps = traced_beam(torch, decoder_lm(cpu_cut, feats[:2].cpu()),
+                                             prompt[:2].cpu(), "cpu", GENB_EOS, GENB_BEAM,
+                                             GENB_BEAM_NEW)
+    beam_flips = 0
+    for i in range(2):
+        b_card, b_cpu = int(card_out["scores"][i].argmax()), int(cpu_out["scores"][i].argmax())
+        a = card_out["tokens"][i, b_card, : int(card_out["seq_lengths"][i, b_card])].tolist()
+        b = cpu_out["tokens"][i, b_cpu, : int(cpu_out["seq_lengths"][i, b_cpu])].tolist()
+        if a == b:
+            continue
+        steps_diff = [s for s, (u, v) in enumerate(zip(card_sel, cpu_sel))
+                      if not torch.equal(u[i].cpu(), v[i])]
+        top2 = cpu_out["scores"][i].topk(2).values
+        gap = float(cpu_gaps[i, steps_diff[0]]) if steps_diff else float(top2[0] - top2[1])
+        check(gap < FLIP_GAP, f"(n3) beam image {i}: the cut's best beam differs from the CPU's "
+              f"where the CPU's gap is {gap:.3e} (>= {FLIP_GAP})")
+        beam_flips += 1
+    del cpu_cut
+    rates["beam"] = dict(images=GENB_BEAM_IMAGES, beam=GENB_BEAM, new_tokens=GENB_BEAM_NEW,
+                         ms=beam_ms, cut_flips=beam_flips, **prof)
+    say(f"(n3) BLIP beam search {GENB_BEAM_IMAGES} images x beam {GENB_BEAM} x {GENB_BEAM_NEW} "
+        f"tokens through decoder_lm: {beam_ms:.1f} ms a call; device "
+        f"{prof['device_ms_per_step']:.3f} ms and {prof['launches_per_step']:.0f} launches a "
+        f"step, busy {prof['busy_share']:.3f}; the {GENB_CUT}-layer cut's best beams of images "
+        f"0-1 equal the CPU's (near-tie flips {beam_flips}; smallest CPU selection gap "
+        f"{float(cpu_gaps.min()):.3e}) ({time.perf_counter() - t0:.1f} s)")
+    figure_line(card, "genb_beam", rates["beam"])
     return launches, rates
+
+
+def genb_apps_path(torch, counters, card: str, work: Path, handles: dict) -> tuple:
+    """(n4) the sweep CLI, cli.sweep.main (what `python -m
+    clipcap_tpu_torch.cli.sweep` runs) from (m)'s files on disk: 2 trials
+    of 4 images from a seeded COCO folder of 8 JPEGs with 5 captions each,
+    over configs/sweep_bayes_01.yaml's space with its `mode` pinned to
+    CLIP-ViT-L (the CLI builds its BLIP ranker on the captioner, as JAX's
+    does, so a trial in ITC mode raises KeyError there; the CPU tests pin
+    that); (n5) cli.human_eval.main with n=4 and --mode CLIP-ViT-L, and the
+    multi-filter packet through prepare_human_eval on the CLI's engine with
+    (m)'s retrieval model as its BLIP ranker (main's --multi_filter raises
+    KeyError at the ITM stage, as JAX's does); (n6) Gumbel caption
+    optimization on (m)'s retrieval model: one step against the CPU, then
+    50 steps of a 12-token caption. The launch counters are set to 0 just
+    before (n4) and read after (n6)."""
+    import csv
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    from clipcap_tpu_torch.cli import human_eval, sweep
+    from clipcap_tpu_torch.cli.synthesis import build_engine
+    from clipcap_tpu_torch.data.preprocessing import blip_preprocess
+    from clipcap_tpu_torch.models.blip_retrieval import encode_image
+    from clipcap_tpu_torch.ops import sampling as S
+    from clipcap_tpu_torch.rank.rankers import BLIPRanker
+    from clipcap_tpu_torch.tools import gumbel_caption_opt as G
+
+    root, tok = handles["root"], handles["tok"]
+    coco = work / "genb_coco"
+    write_coco(coco, SWEEP_IMAGES, 64)
+    files = ["--valid_json_path", str(coco / "captions.json"), "--image_folder_path",
+             str(coco / "images"), "--blip_checkpoint", str(root / "blip.pth"), "--blip_vocab",
+             str(root / "vocab.txt"), "--clip_vit_l_checkpoint", str(root / "vit_l14.pt"),
+             "--clip_merges", str(root / "merges.txt")]
+    space = yaml.safe_load((ROOT / "configs" / "sweep_bayes_01.yaml").read_text())
+    space["parameters"]["mode"] = {"values": ["CLIP-ViT-L"]}
+    sweep_yaml = work / "sweep_bayes_01_clip_l.yaml"
+    sweep_yaml.write_text(yaml.safe_dump(space, sort_keys=False))
+    rates = {}
+    counters(reset=True)
+
+    # (n4) the sweep CLI from the files on disk
+    t0 = time.perf_counter()
+    results = sweep.main(files + ["--sweep_yaml", str(sweep_yaml), "--trials",
+                                  str(SWEEP_TRIALS), "--n", str(SWEEP_N)])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    after_sweep = counters()
+    trials = [dict(trial, **scores) for trial, scores in results]
+    metrics = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "CIDEr")
+    check(len(trials) == SWEEP_TRIALS
+          and all(np.isfinite(t[m]) for t in trials for m in metrics),
+          f"(n4) the sweep returned {trials}")
+    check(after_sweep["fused_attention"] > 0 and after_sweep["fused_filter_sample"] > 0,
+          f"(n4) the sweep launched K1 {after_sweep['fused_attention']} and K2 "
+          f"{after_sweep['fused_filter_sample']} times")
+    say(f"(n4) cli.sweep.main --sweep_yaml sweep_bayes_01.yaml's space (mode pinned to "
+        f"CLIP-ViT-L) --trials {SWEEP_TRIALS} --n {SWEEP_N} from the files on disk: "
+        f"{sweep_s:.1f} s; "
+        + " | ".join(f"{t['mode']} batch {t['batch_size']} top-k {t['top_k']} top-p "
+                     f"{t['top_p']:.4f} min_len {t['min_len']}: Bleu_4 {t['Bleu_4']:.4f} "
+                     f"CIDEr {t['CIDEr']:.4f}" for t in trials)
+        + f"; K1 {after_sweep['fused_attention']}, K2 {after_sweep['fused_filter_sample']} "
+        f"launches")
+    rates["sweep"] = dict(seconds=sweep_s, trials=trials, k1=after_sweep["fused_attention"],
+                          k2=after_sweep["fused_filter_sample"])
+
+    # (n5) human-eval preparation: main's plain packet, and the multi-filter
+    # packet on main's engine with the retrieval model as its BLIP ranker
+    t0 = time.perf_counter()
+    has_plots = importlib.util.find_spec("matplotlib") is not None
+    n = HUMAN_EVAL_N
+    for multi in (False, True):
+        out = work / f"human_eval_{'multi' if multi else 'plain'}"
+        argv = files + ["--n", str(n), "--mode", "CLIP-ViT-L", "--output_folder", str(out)]
+        if not multi and has_plots:
+            recs = human_eval.main(argv)
+        else:  # main always plots, and its BLIP ranker cannot rank by ITM
+            args = human_eval.build_argparser().parse_args(argv)
+            engine = build_engine(args)
+            if multi:
+                retrieval = handles["retrieval"]
+                engine = dataclasses.replace(engine, blip_ranker=BLIPRanker(
+                    retrieval, retrieval.vit_cfg, handles["ret_text"], tok))
+            recs = human_eval.prepare_human_eval(
+                engine, args.valid_json_path, args.image_folder_path, args.output_folder, n=n,
+                mode=args.mode, multi_filter=multi, make_plots=False)
+            del engine
+        check(len(recs) == n, f"(n5) {len(recs)} records, want {n}")
+        if multi:
+            check(all(r["synth_captions"] and np.isfinite(r["synth_captions_scores_itc"]).all()
+                      for r in recs), "(n5) multi-filter records malformed")
+            continue
+        with open(out / "eval.csv", newline="") as f:
+            eval_rows = list(csv.reader(f))
+        with open(out / "gt.csv", newline="") as f:
+            gt_rows = list(csv.reader(f))
+        check(len(eval_rows) == n + 1 and len(gt_rows) == n + 1
+              and sum(r[2] == "True" for r in gt_rows[1:]) == n // 2,
+              f"(n5) eval.csv {len(eval_rows)} rows, gt.csv {len(gt_rows)} rows")
+        plots = sorted(p.name for p in out.glob("score_*"))
+        check(len(plots) == (4 if has_plots else 0), f"(n5) plots {plots}")
+    human_s = time.perf_counter() - t0
+    say(f"(n5) human-eval preparation n={n} --mode CLIP-ViT-L: the plain packet and the "
+        f"multi-filter one (prepare_human_eval on the CLI's engine, ranked by the retrieval "
+        f"model): {human_s:.1f} s; eval.csv and gt.csv {n} rows each, blinded split {n // 2}; "
+        + ("matplotlib installed: cli.human_eval.main prepared the plain packet and plotted "
+           "the scores" if has_plots else
+           "matplotlib is NOT installed on this machine: the plain packet was prepared by "
+           "prepare_human_eval(..., make_plots=False), not by main"))
+    rates["human_eval"] = dict(seconds=human_s, matplotlib=has_plots)
+
+    # (n6) Gumbel caption optimization on (m)'s retrieval model
+    t0 = time.perf_counter()
+    retrieval, ret_text = handles["retrieval"], handles["ret_text"]
+    image = Image.open(handles["image_path"]).convert("RGB")
+    px = torch.from_numpy(blip_preprocess(image, retrieval.vit_cfg.image_size))[None].to("cuda")
+    img = encode_image(retrieval, px)
+    gen = torch.Generator().manual_seed(71)
+    init = 0.01 * torch.randn(1, GUMBEL_LEN, ret_text.vocab_size, generator=gen)
+    noise = S.gumbel_like(init, gen)
+    cpu = copy.deepcopy(retrieval).cpu()
+    step = {}
+    for side, (model, dev) in (("card", (retrieval, "cuda")), ("cpu", (cpu, "cpu"))):
+        opt = G.AdamW(lambda count: GUMBEL_LR, 0.0, ["logits"])
+        logits = init.clone().to(dev)
+        state = opt.init([logits])
+        itc, grad, _ = G.gumbel_step(model, G.image_feature(model, img.to(dev)), logits, opt,
+                                     state, noise.to(dev), 1.0, tok.cls_token_id,
+                                     tok.sep_token_id)
+        step[side] = (itc.cpu(), grad.cpu(), logits.cpu())
+    del cpu
+    errs = {}
+    for i, what in enumerate(("itc", "gradient", "logits after Adam")):
+        a, b = step["card"][i], step["cpu"][i]
+        scale = max(float(b.abs().max()), 1e-30)
+        errs[what] = assert_close(torch, a, b, CARD_VS_CPU[0] * scale, CARD_VS_CPU[1],
+                                  f"(n6) one Gumbel step's {what} card vs CPU") / scale
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = G.optimize_caption(retrieval, ret_text, img, tok, caption_length=GUMBEL_LEN,
+                             steps=GUMBEL_STEPS, lr=GUMBEL_LR, seed=3, log_every=0,
+                             device="cuda")
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t1) * 1e3 / GUMBEL_STEPS
+    check(bool(np.isfinite(res["itc"])) and len(res["tokens"]) == GUMBEL_LEN,
+          f"(n6) optimize_caption gave {res}")
+    say(f"(n6) Gumbel caption optimization on the BLIP retrieval model (ViT-B/16 at 384 px, "
+        f"the text encoder, vocabulary {ret_text.vocab_size}): one step card vs CPU, max abs err "
+        f"over the CPU's largest value: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (bound {CARD_VS_CPU[0]}); {GUMBEL_STEPS} steps of a {GUMBEL_LEN}-token caption: "
+        f"{ms_step:.2f} ms a step (wall), final ITC {res['itc']:.4f}, caption "
+        f"{res['caption'][:60]!r} ({time.perf_counter() - t0:.1f} s)")
+    rates["gumbel"] = dict(ms_per_step=ms_step, steps=GUMBEL_STEPS, itc=res["itc"],
+                           step_rel_err=errs)
+    launches = counters()
+    figure_line(card, "genb_apps", {"sweep_s": sweep_s, "human_eval_s": human_s,
+                                    "gumbel_ms_per_step": ms_step})
+    return launches, rates
+
+
+def genb_rest_path(torch, counters, FA, FS, S, card: str, work: Path, handles: dict) -> tuple:
+    """Phase (n): the rest of Gen B on (m)'s weights, vocabulary and
+    modules: (n1) K3 and K2 at [64, 30524] against their plain versions,
+    and K1 at the shape of (n2)'s pool encode; (n2)-(n3) BLIP served and
+    beam-searched; (n4)-(n6) the sweep, human eval and Gumbel optimization,
+    then K2 against its plain version at each sweep trial's batch size,
+    top-k and top-p. Returns the launches of the serving path and of the
+    apps' path, and the rates."""
+    t_phase = time.perf_counter()
+    k = check_sampler_genb_serving(torch, FS, S)
+    vit_cfg = handles["vit_cfg"]
+    k1_shapes = check_attention_preprocess(
+        torch, FA, [(GENB_IMAGES, vit_cfg.seq_len, vit_cfg.heads, vit_cfg.width // vit_cfg.heads)],
+        "(n2)'s pool encode")
+    serving_launches, rates = genb_serving_path(torch, counters, card, handles)
+    torch.cuda.empty_cache()
+    apps_launches, app_rates = genb_apps_path(torch, counters, card, work, handles)
+    rates.update(app_rates, k2=k["fused_filter_sample"], k3=k["fused_step_sample"],
+                 k1_shapes=k1_shapes)
+    rates["k2_sweep"] = [check_sampler_genb(torch, FS, S, rows=t["batch_size"], top_k=t["top_k"],
+                                            top_p=t["top_p"], label="(n4)")
+                         for t in app_rates["sweep"]["trials"]]
+    shutil.rmtree(handles["root"], ignore_errors=True)
+    say(f"Gen-B phase (n): {time.perf_counter() - t_phase:.1f} s")
+    return serving_launches, apps_launches, rates
 
 
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
@@ -4586,6 +5171,37 @@ def profile_call(torch, label: str, run, wall_ms: float) -> dict:
         f"the profiler ({100 * busy_ms / wall_ms:.1f}% of the {wall_ms:.1f} ms wall of the "
         f"unprofiled call {label}); top: {top}; aggregated in {t_agg:.1f} s")
     return dict(launches=launches, busy_ms=busy_ms, wall_ms=prof_wall_ms)
+
+
+def op_shape_profile(torch, label: str, run, per: int, top: int = 8) -> dict:
+    """The host ops that own the most device time in one call, by op and
+    input shapes (torch.profiler with record_shapes: a kernel's time goes
+    to the op that launched it), in ms per `per` repeats of the work. For
+    short calls: host events take ~0.2 ms each to aggregate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_device_us(e):
+        got = getattr(e, "self_device_time_total", None)
+        return got if got is not None else e.self_cuda_time_total
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    # the host ops only: the kernels' own rows would count their time twice
+    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.device_type == DeviceType.CPU and self_device_us(e) > 0),
+                 key=lambda e: -self_device_us(e))
+    check(bool(ops), f"op profile {label}: no op owned device time")
+    total = sum(self_device_us(e) for e in ops) / 1e3 / per
+    out = [dict(op=e.key, input_shapes=str(e.input_shapes), ms=self_device_us(e) / 1e3 / per,
+                calls=e.count / per) for e in ops[:top]]
+    say(f"op profile {label}: {total:.3f} device ms a repeat; top ops by device time: "
+        + "; ".join(f"{o['op']} {o['input_shapes'][:120]} {o['ms']:.3f} ms x{o['calls']:g}"
+                    for o in out))
+    return dict(device_ms=total, top=out)
 
 
 def main() -> int:
@@ -4673,8 +5289,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         t5_launches, t5_rates = t5_path(torch, counters, FS, S, card, work, args.t0_layers)
         torch.cuda.empty_cache()
-        genb_launches, genb_rates = genb_path(torch, counters, FA, FS, S, card, work)
+        genb_launches, genb_rates, genb_handles = genb_path(torch, counters, FA, FS, S, card,
+                                                            work)
         k1["at_genb_shapes"] = genb_rates.pop("k1_shapes")
+        torch.cuda.empty_cache()
+        genb_serve_launches, genb_apps_launches, rest_rates = genb_rest_path(
+            torch, counters, FA, FS, S, card, work, genb_handles)
+        k1["at_genb_serving_shapes"] = rest_rates.pop("k1_shapes")
+        del genb_handles
         torch.cuda.empty_cache()
         train_launches, train_rates = train_path(torch, counters, card, work)
     finally:
@@ -4688,6 +5310,8 @@ def main() -> int:
                                  "t5": t5_launches["fused_attention"],
                                  "preprocess": prep_launches["fused_attention"],
                                  "genb": genb_launches["fused_attention"],
+                                 "serving_genb": genb_serve_launches["fused_attention"],
+                                 "genb_apps": genb_apps_launches["fused_attention"],
                                  "train": train_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
@@ -4697,12 +5321,15 @@ def main() -> int:
                                      "gptj": gptj_launches["fused_filter_sample"],
                                      "t5": t5_launches["fused_filter_sample"],
                                      "genb": genb_launches["fused_filter_sample"],
+                                     "serving_genb": genb_serve_launches["fused_filter_sample"],
+                                     "genb_apps": genb_apps_launches["fused_filter_sample"],
                                      "train": train_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"],
                                    "int8": int8_launches["fused_step_sample"],
                                    "gptj": gptj_launches["fused_step_sample"],
-                                   "t5": t5_launches["fused_step_sample"]},
+                                   "t5": t5_launches["fused_step_sample"],
+                                   "serving_genb": genb_serve_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
     for name, by_path in paths.items():
         if name != "fused_filter":
@@ -4726,6 +5353,11 @@ def main() -> int:
         sources[name][2]["at_vocab_32128"] = v32128[name]
     # K2 at Gen B's synthesis step, [40, 30524] with top-k 2500 and per-row top-p
     sources["fused_filter_sample"][2]["at_genb_40x30524"] = genb_rates.pop("k2")
+    # K2 and K3 at BLIP serving's step, [64, 30524] with top-k 2500 and top-p 0.5
+    sources["fused_filter_sample"][2]["at_genb_64x30524"] = rest_rates.pop("k2")
+    sources["fused_step_sample"][2]["at_genb_64x30524"] = rest_rates.pop("k3")
+    # K2 at each sweep trial's synthesis step, [batch_size, 30524] with its top-k and top-p
+    sources["fused_filter_sample"][2]["at_genb_sweep_trials"] = rest_rates.pop("k2_sweep")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(paths[name].values()), launches_by_path=paths[name],
                     on_path=name != "fused_filter", **nums)
@@ -4740,6 +5372,7 @@ def main() -> int:
     say(f"t5 on {card}: " + json.dumps(t5_rates))
     say(f"preprocess on {card}: " + json.dumps(prep_rates))
     say(f"genb on {card}: " + json.dumps(genb_rates))
+    say(f"genb serving and apps on {card}: " + json.dumps(rest_rates))
     say(f"train on {card}: " + json.dumps(train_rates))
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -11,7 +11,9 @@ hyperparameter grid, then rank them by a mode. Here:
 - SynthesisEngine: the BLIP captioner ({"visual": ViT, "text": BlipText}),
   the WordPiece tokenizer and the rankers; synthesize() returns the
   candidates, rank() applies a mode (CLIP-ViT-L+RN50x64 | CLIP-ViT-L |
-  CLIP-RN50x64 | ITM | ITC, reference caption_me.py:56-74).
+  CLIP-RN50x64 | ITM | ITC, reference caption_me.py:56-74);
+- build_engine(): the engine of the sweep and human-eval CLIs from their
+  parsed arguments.
 
 The reference puts the sampler and the rankers on two GPUs (deviceA and
 deviceB, caption_me.py:49-50); here they run one after the other on one
@@ -132,6 +134,26 @@ class SynthesisEngine:
             order = np.argsort(scores)[::-1][:top_n]
             return [(captions[i], float(scores[i])) for i in order]
         raise RuntimeError(f'Unsupported mode "{mode}"')
+
+
+def build_engine(args) -> SynthesisEngine:
+    """The engine of the sweep and human-eval CLIs: the BLIP captioner,
+    CLIP ViT-L/14 when its checkpoint is given, and the BLIP ranker over the
+    captioner's modules (as in JAX, so it cannot rank by ITM or ITC), all on
+    args.device."""
+    from .loading import load_blip_captioner, load_clip_ranker
+
+    blip_params, vit_cfg, text_cfg, tokenizer = load_blip_captioner(
+        args.blip_checkpoint, args.blip_vocab, vit_variant=args.blip_vit_variant,
+        device=args.device)
+    clip_rankers = {}
+    if args.clip_vit_l_checkpoint:
+        clip_rankers["ViT-L/14"] = load_clip_ranker("ViT-L/14", args.clip_vit_l_checkpoint,
+                                                    args.clip_merges, device=args.device)
+    return SynthesisEngine(blip_params=blip_params, blip_vit_cfg=vit_cfg,
+                           blip_text_cfg=text_cfg, tokenizer=tokenizer,
+                           clip_rankers=clip_rankers,
+                           blip_ranker=BLIPRanker(blip_params, vit_cfg, text_cfg, tokenizer))
 
 
 def ranker_preprocess(engine: SynthesisEngine, name: str, image) -> np.ndarray:

@@ -18,7 +18,10 @@ logits / temperature, then scores + logp, then / seq_lengths). The host
 reads nothing back inside the loop. A cross-attention cache (T5's encoder
 output and mask bias) is repeated once per beam at the expansion and then
 left alone: every beam of an image reads the same rows, so reordering them
-would change no bit (JAX's `_CROSS_FIELDS`).
+would change no bit (JAX's `_CROSS_FIELDS`). A token-id adapter
+(`lm.takes_token_ids`, the BLIP decoder's decoder_lm) takes an [N, P] int
+prompt, picks its own cache dtype and is fed ids each step (JAX
+beam.py:147-154, :194-197).
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ def _topk_iter(x: torch.Tensor, k: int):
 @torch.no_grad()
 def beam_search_batched(
     lm,  # LM module implementing the lm/registry protocol
-    prompt_embeds: torch.Tensor,  # [N, P, D]
+    prompt_embeds: torch.Tensor,  # [N, P, D], or [N, P] ids for a token-id adapter
     beam_size: int = 5,
     max_new_tokens: int = 67,
     temperature: float = 1.0,
@@ -110,7 +113,8 @@ def beam_search_batched(
     temp = temperature if temperature > 0 else 1.0
     dev = prompt_embeds.device
 
-    cache = lm.init_cache(n_img, p_len + n, dtype=prompt_embeds.dtype)
+    token_mode = bool(getattr(lm, "takes_token_ids", False))
+    cache = lm.init_cache(n_img, p_len + n, dtype=None if token_mode else prompt_embeds.dtype)
     logits, cache = lm.prefill(prompt_embeds, cache)
     logp = torch.log_softmax(logits[:, -1].float() / temp, dim=-1)  # [N, V]
     vocab = logp.shape[-1]
@@ -131,6 +135,8 @@ def beam_search_batched(
         decode_fn = lm.decode_step
 
     def step_input(tok):  # tok [N*beam]
+        if token_mode:
+            return tok[:, None]
         return lm.embed_tokens(tok)[:, None, :].to(prompt_embeds.dtype)
 
     img_base = torch.arange(n_img, device=dev)[:, None] * beam_size

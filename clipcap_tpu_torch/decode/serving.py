@@ -39,7 +39,12 @@ Left behind as TPU workarounds: layout pinning, the jitted row gather and
 buffer donation. The sentence-length penalty is rejected (it needs the
 batch-global step counter). Supported LMs: any module with
 `decode_step_ring` and `scatter_refill` (GPT-2, GPT-J and T5, float and
-int8; a T5 refill swaps each request's encoder output in by a row paste).
+int8; a T5 refill swaps each request's encoder output in by a row paste),
+and the BLIP decoder through blip_text.serving_decoder_lm. That adapter
+takes token ids (`takes_token_ids`): each step feeds the emitted ids, a
+request's prefix is its image features [Tv, W], whose prefill makes its
+cross-attention K/V, and a fixed decoder prompt occupies the ring. Pass
+prefix_len = image tokens and prompt_len = prompt ids.
 """
 
 from __future__ import annotations
@@ -128,6 +133,9 @@ class ServingEngine:
                     "refills; ServingEngine takes scalars (use per-request max_length on "
                     "Request for length caps)")
         _check_filter_method(settings)
+        # token-id adapters (blip_text.serving_decoder_lm) are fed ids; their
+        # prefix is still a tensor per request (the image features)
+        self.token_mode = bool(getattr(lm, "takes_token_ids", False))
         self.device = torch.device(device)
         weights = next(lm.parameters())
         if weights.device.type != self.device.type:
@@ -141,7 +149,8 @@ class ServingEngine:
         self.refill_size = int(refill_size or max(1, slots // 8))
         self.steps_per_sync = int(steps_per_sync)
         self.pipeline_depth = max(1, int(pipeline_depth))
-        self.dtype = dtype or weights.dtype
+        # a token-id adapter names its own cache dtype (f32 for BLIP, as JAX's)
+        self.dtype = dtype or getattr(lm, "cache_dtype", None) or weights.dtype
         # ring capacity: a row refilled at index I0 claims [I0-P, I0-1] and
         # its step k reads P+k entries, so T >= P + lifetime + 1. The
         # lifetime is the scan bound n or, when the caller DECLARES every
@@ -262,7 +271,8 @@ class ServingEngine:
             st.age = st.age + (st.live & ~st.stopped)
             st.nat_stopped = st.nat_stopped | (completed & ~st.stopped)
             st.stopped = st.stopped | completed | (st.age >= n)
-            step_in = self.lm.embed_tokens(emitted)[:, None, :].to(self.dtype)
+            step_in = (emitted[:, None] if self.token_mode
+                       else self.lm.embed_tokens(emitted)[:, None, :].to(self.dtype))
             logits, st.cache = self.lm.decode_step_ring(step_in, st.cache, st.pos, st.start)
             st.last_logits = logits.float()
             st.pos = st.pos + 1 if self._pos_limit is None else (st.pos + 1).clamp(
@@ -307,8 +317,11 @@ class ServingEngine:
     def warmup(self, embed_dim: Optional[int] = None) -> "ServingEngine":
         """Run init, every chunk length and every refill size once on dummy
         data: the card's libraries, the kernels' build and the allocator
-        are then ready before the first request stream."""
-        embed_dim = embed_dim or self.lm.embedding_size()
+        are then ready before the first request stream. The dummy prefix
+        rows are `embed_dim` wide: the LM's embedding width, or a token-id
+        adapter's prefix width (BLIP: the image encoder's)."""
+        embed_dim = embed_dim or (self.lm.prefix_width() if self.token_mode
+                                  else self.lm.embedding_size())
         b, dev = self.slots, self.device
         zeros = torch.zeros((b, self.prefix_len, embed_dim), dtype=self.dtype, device=dev)
         caps = torch.full((b,), self.settings.max_new_tokens, dtype=torch.int64, device=dev)

@@ -25,8 +25,15 @@ axis, so the K/V are stored and read once per image, never repeated.
 Self-attention in a cached step scores the positions written so far; JAX
 scores the whole cache width under a causal mask, where the masked keys
 weigh exactly 0. Attention is plain torch, as it is plain XLA in JAX: no
-kernel runs here. `serving_decoder_lm` (continuous batching) is not ported
-yet (ROADMAP.md item 11b).
+kernel runs here.
+
+Continuous batching: `serving_decoder_lm(text, prompt_ids, num_image_tokens)`
+gives decode/serving.py's ring protocol. Each request's prefix is its image
+features, which its prefill turns into cross K/V rows; the fixed decoder
+prompt occupies the self-attention ring. A ring step writes one slab at the
+global index and attends the whole ring width under ops/ring.ring_layout's
+[B, T] window bias, each row at its own position (JAX's
+`_forward_cached(..., ring=(pos, start))`).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from ..ops import quant
 from ..ops.activations import gelu_exact
 from ..ops.attention import causal_bias, padding_bias
 from ..ops.layernorm import LayerNorm
+from ..ops.ring import paste_rows, refill_positions, ring_layout
 from .common import gather_rows, linear, make_generator, normal
 
 
@@ -141,12 +149,17 @@ class BlipText(nn.Module):
             self.cls_ln = LayerNorm(d, eps, device=device, dtype=dtype)
             self.cls_decoder = linear(d, cfg.vocab_size, **kw)
 
-    def embeddings(self, tokens: torch.Tensor, position_offset: int = 0) -> torch.Tensor:
-        """Word plus position embeddings, then the embedding LayerNorm."""
+    def embeddings(self, tokens: torch.Tensor, position_offset=0) -> torch.Tensor:
+        """Word plus position embeddings, then the embedding LayerNorm.
+        position_offset: an int, or a [B] tensor of per-row positions (ring
+        decode: every serving slot sits at its own logical position)."""
         t = tokens.shape[1]
-        pos = torch.arange(position_offset, position_offset + t, device=tokens.device)
-        x = gather_rows(self.word_embeddings, tokens) + self.position_embeddings[pos][None]
-        return self.emb_ln(x)
+        steps = torch.arange(t, device=tokens.device)
+        if torch.is_tensor(position_offset) and position_offset.dim() == 1:
+            pos_emb = self.position_embeddings[position_offset[:, None] + steps[None]]
+        else:
+            pos_emb = self.position_embeddings[position_offset + steps][None]
+        return self.emb_ln(gather_rows(self.word_embeddings, tokens) + pos_emb)
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """The MLM head: dense -> gelu -> LayerNorm -> decoder (an int8
@@ -195,29 +208,46 @@ class BlipText(nn.Module):
         return torch.stack(ks), torch.stack(vs)
 
     def forward_cached(self, tokens: torch.Tensor, cache: KVCache, cross_repeat: int = 1,
-                       full_logits: bool = False) -> Tuple[torch.Tensor, KVCache]:
+                       full_logits: bool = False, ring=None) -> Tuple[torch.Tensor, KVCache]:
         """JAX's `_forward_cached`: t positions after the cache's index,
         written into the cache IN PLACE. Logits [B, t, V] with
-        full_logits, else [B, 1, V] of the last position."""
+        full_logits, else [B, 1, V] of the last position.
+
+        ring=(pos [B], start [B]): a continuous-batching step (t == 1,
+        no grouped rows). cache.index is the global step counter, the slab
+        lands at index % T, row b embeds position pos[b] and attends the
+        whole ring under the window bias of ops/ring.ring_layout."""
         t = tokens.shape[1]
         idx, a_len = cache.index, cache.k.shape[2]
-        end = idx + t
-        if end > a_len:
-            raise ValueError(f"cache of {a_len} positions cannot take {end}")
-        x = self.embeddings(tokens, position_offset=idx)
-        bias = causal_bias(t, end, device=tokens.device)
+        if ring is not None:
+            if t != 1:
+                raise ValueError("ring mode is decode-only (t == 1)")
+            if cross_repeat != 1:
+                raise ValueError("grouped cross-attention (repeat > 1) is a Gen-B candidate "
+                                 "layout, not a serving one")
+            pos, start = ring
+            wslot, ring_bias = ring_layout(idx, a_len, start)
+            bias = ring_bias[:, None, None, :]  # [B, 1, 1, T]
+            x = self.embeddings(tokens, position_offset=pos)
+            end = a_len
+        else:
+            wslot, end = idx, idx + t
+            if end > a_len:
+                raise ValueError(f"cache of {a_len} positions cannot take {end}")
+            x = self.embeddings(tokens, position_offset=idx)
+            bias = causal_bias(t, end, device=tokens.device)
         for layer, blk in enumerate(self.blocks):
             sa, ca = blk.self_attn, blk.cross_attn
             q = sa.project(sa.wq, x)
-            cache.k[layer, :, idx:end] = sa.project(sa.wk, x).to(cache.k.dtype)
-            cache.v[layer, :, idx:end] = sa.project(sa.wv, x).to(cache.v.dtype)
+            cache.k[layer, :, wslot:wslot + t] = sa.project(sa.wk, x).to(cache.k.dtype)
+            cache.v[layer, :, wslot:wslot + t] = sa.project(sa.wv, x).to(cache.v.dtype)
             x = attend(x, q, cache.k[layer, :, :end], cache.v[layer, :, :end], sa, bias)
             x = attend(x, ca.project(ca.wq, x), cache.cross_k[layer], cache.cross_v[layer], ca,
                        cache.cross_bias, cross_repeat)
             x = blk.mlp(x)
         if not full_logits:
             x = x[:, -1:]
-        return self.lm_logits(x), cache._replace(index=end)
+        return self.lm_logits(x), cache._replace(index=idx + t)
 
 
 class BlipDecoderLM:
@@ -270,6 +300,92 @@ def decoder_lm(text: BlipText, encoder_hidden_states: torch.Tensor,
                repeat: int = 1) -> BlipDecoderLM:
     """The decoder's engine adapter (JAX `blip_text.decoder_lm`)."""
     return BlipDecoderLM(text, encoder_hidden_states, encoder_attention_mask, repeat)
+
+
+class BlipServingLM:
+    """JAX's `serving_decoder_lm`: decode/serving.py's ring protocol over one
+    BLIP text decoder (float or int8). A request's prefix is its image
+    features [Tv, W]: prefill turns a batch of them into that batch's cross
+    K/V and runs the fixed prompt through the self-attention ring, and
+    scatter_refill pastes both the self-attention slabs and the cross K/V
+    rows. Serve it with ServingEngine(prefix_len=num_image_tokens,
+    prompt_len=len(prompt_ids)); it takes token ids."""
+
+    takes_token_ids = True
+    cache_dtype = torch.float32  # init_cache's dtype when given none, as JAX's
+
+    def __init__(self, text: BlipText, prompt_ids, num_image_tokens: int, device="cuda"):
+        dev = torch.device(device)
+        weights = next(text.parameters()).device
+        if weights.type != dev.type:
+            raise ValueError(f"text decoder on {weights}, the adapter asked for {dev}")
+        self.text, self.cfg = text, text.cfg
+        self.num_image_tokens = int(num_image_tokens)
+        self.prompt_ids = torch.as_tensor(prompt_ids, dtype=torch.int64,
+                                          device=weights).reshape(1, -1)
+
+    def parameters(self):
+        return self.text.parameters()
+
+    def prefix_width(self) -> int:
+        """The width of a request's prefix rows: the image encoder's."""
+        return self.cfg.encoder_width
+
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> KVCache:
+        dtype = self.cache_dtype if dtype is None else dtype
+        cfg, dev = self.cfg, self.prompt_ids.device
+        heads, dh = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+
+        def zeros(t):
+            return torch.zeros((cfg.num_layers, batch, t, heads, dh), dtype=dtype, device=dev)
+
+        return KVCache(k=zeros(max_len), v=zeros(max_len), cross_k=zeros(self.num_image_tokens),
+                       cross_v=zeros(self.num_image_tokens), cross_bias=None, index=0)
+
+    @torch.no_grad()
+    def prefill(self, image_feats: torch.Tensor,
+                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+        """image_feats [R, Tv, W] -> the batch's cross K/V into the cache,
+        then the prompt through its self-attention; logits [R, 1, V]."""
+        ck, cv = self.text.precompute_cross(image_feats)
+        cache.cross_k.copy_(ck)
+        cache.cross_v.copy_(cv)
+        ids = self.prompt_ids.expand(image_feats.shape[0], -1)
+        return self.text.forward_cached(ids, cache)
+
+    @torch.no_grad()
+    def decode_step(self, token_ids: torch.Tensor,
+                    cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+        logits, cache = self.text.forward_cached(token_ids, cache)
+        return logits[:, -1], cache
+
+    @torch.no_grad()
+    def decode_step_ring(self, token_ids: torch.Tensor, cache: KVCache, pos: torch.Tensor,
+                         start: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+        logits, cache = self.text.forward_cached(token_ids, cache, ring=(pos, start))
+        return logits[:, -1], cache
+
+    @staticmethod
+    def scatter_refill(cache: KVCache, small: KVCache, q: int) -> KVCache:
+        """Paste a freshly prefilled R-row cache IN PLACE into the ring
+        cache's row block [q, q+R): the self-attention slabs at the ring
+        slots the prompt claims (GPT2.scatter_refill), the cross K/V as
+        whole rows (cross-attention has no time axis of its own)."""
+        rp = refill_positions(cache.index, small.k.shape[2], cache.k.shape[2], cache.k.device)
+        paste_rows(cache.k, small.k, q, rp, time_axis=2)
+        paste_rows(cache.v, small.v, q, rp, time_axis=2)
+        rows = slice(q, q + small.cross_k.shape[1])
+        cache.cross_k[:, rows] = small.cross_k.to(cache.cross_k.dtype)
+        cache.cross_v[:, rows] = small.cross_v.to(cache.cross_v.dtype)
+        return cache
+
+
+def serving_decoder_lm(text: BlipText, prompt_ids, num_image_tokens: int,
+                       device="cuda") -> BlipServingLM:
+    """The decoder's continuous-batching adapter (JAX
+    `blip_text.serving_decoder_lm`), on `device`: the card unless the
+    caller asks for the CPU, where `text` must already lie."""
+    return BlipServingLM(text, prompt_ids, num_image_tokens, device)
 
 
 # --- int8 decode (port of blip_text.py:437-481) ---------------------------------------------

@@ -1,1 +1,2 @@
-"""Host utilities: metric logging (logging.py), and tracing and step timing (profiling.py)."""
+"""Host utilities: metric logging (logging.py), tracing and step timing
+(profiling.py), and the TPE sweep optimizer (tpe.py)."""

@@ -301,3 +301,15 @@ def test_entry_points_default_to_the_card():
     args = caption_me.build_argparser().parse_args(["x.jpg", "--blip_checkpoint", "b.pth",
                                                     "--blip_vocab", "vocab.txt"])
     assert args.device == "cuda" and args.mode == "CLIP-ViT-L+RN50x64"
+    # the rest of Gen B: the sweep, human-eval, Gumbel optimization, BLIP serving
+    from clipcap_tpu_torch.cli import human_eval, sweep
+    from clipcap_tpu_torch.models.blip_text import serving_decoder_lm
+    from clipcap_tpu_torch.tools.gumbel_caption_opt import optimize_caption
+
+    for fn in (optimize_caption, serving_decoder_lm):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    need = ["--valid_json_path", "c.json", "--image_folder_path", "img", "--blip_checkpoint",
+            "b.pth", "--blip_vocab", "vocab.txt"]
+    for cli in (sweep, human_eval):
+        assert cli.build_argparser().parse_args(need).device == "cuda", cli
+    assert human_eval.build_argparser().parse_args(need).mode == "CLIP-ViT-L+RN50x64"

@@ -59,6 +59,11 @@ GENB_MODULES = ["clipcap_tpu_torch.models.blip_text", "clipcap_tpu_torch.models.
                 "clipcap_tpu_torch.models.clip_resnet", "clipcap_tpu_torch.tokenizers.wordpiece",
                 "clipcap_tpu_torch.decode.hetero", "clipcap_tpu_torch.rank.cascade",
                 "clipcap_tpu_torch.cli.synthesis", "clipcap_tpu_torch.cli.caption_me"]
+# the rest of Gen B: TPE, the COCO sampling sweep, human-eval preparation and
+# Gumbel caption optimization
+GENB_REST_MODULES = ["clipcap_tpu_torch.utils.tpe", "clipcap_tpu_torch.cli.sweep",
+                     "clipcap_tpu_torch.cli.human_eval",
+                     "clipcap_tpu_torch.tools.gumbel_caption_opt"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -110,7 +115,8 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES):
+                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES
+                 + GENB_REST_MODULES):
         assert f"'{name}'" in out.stdout, name
 
 
@@ -183,13 +189,41 @@ def test_preprocess_modules_import_without_pil_cuda_or_a_native_build():
     assert "PREPROCESS OK" in out.stdout and "CUDA initialized False" in out.stdout, out.stdout
 
 
+# the rest of Gen B imports without jax, triton, PIL, matplotlib, yaml or wandb
+# (each is imported inside the function that needs it) and without CUDA
+_IMPORT_GENB_REST = """
+import importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "triton", "clipcap_tpu", "PIL", "matplotlib", "yaml", "wandb")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import importlib, torch
+for name in %r:
+    importlib.import_module(name)
+from clipcap_tpu_torch.models.blip_text import serving_decoder_lm
+print("CUDA initialized", torch.cuda.is_initialized())
+print("GENB REST OK")
+""" % (GENB_REST_MODULES,)
+
+
+def test_genb_rest_modules_import_without_jax_plots_yaml_or_cuda():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_GENB_REST], capture_output=True,
+                         text=True, cwd=ROOT, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "GENB REST OK" in out.stdout and "CUDA initialized False" in out.stdout, out.stdout
+
+
 def test_source_has_no_jax_or_jax_package_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|clipcap_tpu)(\.|\s|$)", re.M)
     top = re.compile(r"^(import|from)\s+(PIL|regex|tokenizers|transformers)(\.|\s|$)", re.M)
     hits = []
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
-                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES):
+                 + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES
+                 + GENB_REST_MODULES):
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:
