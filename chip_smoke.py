@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's captioning, serving, evaluation, preprocessing,
-Gen-B synthesis, serving and apps, and training paths on one NVIDIA GPU.
+Gen-B synthesis, serving and apps, training and parallel paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--xl_layers N] [--gptj_layers N] [--t0_layers N]
 
@@ -73,8 +74,9 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 9. drives int8 decode (phase (i), run before (h)): the int8 products
    (torch._int_mm at every GPT2-XL linear shape and the paths' rows, the
    f32 attention dots on int8 values) against exact CPU products; a
-   GPT2-XL captioner (full width, 8 of its 48 layers since phase (m) came,
-   12 before, for the run's time; --xl_layers 48 runs it whole) seeded on the card in
+   GPT2-XL captioner (full width, 4 of its 48 layers since phase (o) came,
+   8 since (m), 12 before, for the run's time; --xl_layers 48 runs it
+   whole) seeded on the card in
    bf16 and quantized by bundle.enable_int8_decode() (every q and s against
    the CPU's, prefill logits within 16 bf16 steps); the no-beam sweep on
    the bf16 and the int8 LM (device ms and launches per step, busy share, captions/s);
@@ -87,8 +89,9 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 10. drives GPT-J-6B (phase (j), after (i), before (h)): K2/K3/K4 against
    their plain versions at its vocabulary of 50400 (9, 16, 64, 72 and 512
    rows, every cluster size there); the captioner (CLIP ViT-B/32, the
-   mapper at 4096, GPT-J-6B: 4 of its 28 layers since phase (m) came, 8
-   before, for the run's time, --gptj_layers 28 for all; 16 heads of 256) seeded on the
+   mapper at 4096, GPT-J-6B: 2 of its 28 layers since phase (o) came, 4
+   since (m), 8 before, for the run's time, --gptj_layers 28 for all; 16
+   heads of 256) seeded on the
    card in bf16, a 2-layer cut held against the CPU (logits, the int8
    quantization); the no-beam sweep, beam search and serving in bf16 and
    in int8; speculative greedy decode with the model as its own draft and
@@ -99,9 +102,10 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    bit-identical after the steps, a 2-layer cut's loss against the CPU;
 11. drives T0-11B (phase (k), after (j), before (m)): K2/K3/K4 against
    their plain versions at T0's vocabulary of 32128; the captioner (CLIP
-   ViT-B/32, the mapper at 4096, T5Config.variant("t0-11b") at 6 + 6 of
-   its 24 + 24 layers since phase (n) came (8 + 8 since (m)), for the
-   run's time, --t0_layers 24 for all; 64 heads of 64, d_ff 10240, gated-gelu, untied
+   ViT-B/32, the mapper at 4096, T5Config.variant("t0-11b") at 2 + 2 of
+   its 24 + 24 layers since phase (o) came (6 + 6 since (n), 8 + 8 since
+   (m)), for the run's time, --t0_layers 24 for all; 64 heads of 64, d_ff
+   10240, gated-gelu, untied
    lm_head) seeded
    on the card in bf16 and driven by token ids, K1 in a bf16 and an f32
    encode, a 2 + 2-layer cut held against the CPU (buckets, logits, the
@@ -169,7 +173,20 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    caption optimization on the retrieval model (one step against the CPU,
    50 steps timed), the counters set to 0 before (n4) and read after (n6);
    then K2 against its plain version at each sweep trial's shape;
-15. prints one JSON line of kernels, the card line, and last
+15. drives the parallel paths under NCCL at world size 1 (phase (o),
+   core.mesh.init_distributed with a file:// rendezvous, after (i); each
+   part on the handles of the phase it follows): (o2) after (i), DP decode
+   of (i)'s int8 GPT2-XL; (o4) after (j), enable_tensor_parallel(1) on
+   (j)'s GPT-J-6B, the logits bit for bit, K2 at [72, 50400]; (o7) after
+   (n), the ring-attention ViT on (m)'s BLIP ViT-L/16 at 384 px against
+   K1's forward; after (h): (o5) torchrun cli.train --zero_shard_params on
+   (h)'s shards, (o1) DP decode and (o3) DP serving on the main bundle,
+   (o6) the GPipe step, (o8) the expert-parallel MoE mapper, (o9)
+   tools/dryrun_multichip's drive; every result equal to the unsharded path's, the
+   device ms, launches and NCCL kernels per step printed plain and
+   parallel; K2/K3 also launched with row_base (a data-parallel shard's
+   first row) in the sampler checks;
+16. prints one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -694,6 +711,24 @@ def check_sampler(torch, FS, S, vocab: int = 50257, sampler_rows=SAMPLER_ROWS,
             f"next/alt exact with injected noise, alt_prob/eos_lp within rtol {SAMPLER_RTOL}, "
             f"K4 exact, Philox draws inside the kept set, two launches bit-identical (top-p "
             f"sweep moved to mid-gap: nearest cumulative mass {gaps[-1]:.2e} relative away)")
+        if rows == 64:
+            # a data-parallel shard: rows 32-63 launched alone with row_base 32
+            # draw the whole launch's Philox noise for those rows
+            lo = 32
+            part = (x[lo:].contiguous(), top_k[lo:], pp_k[lo:])
+            gate = (appears[lo:].contiguous(), suppress[lo:])
+            pairs = (("K2", FS.fused_filter_sample(x, top_k, pp_k, 41),
+                      FS.fused_filter_sample(*part, 41, row_base=lo)),
+                     ("K3", FS.fused_step_sample(x, top_k, pp_k, 43, **step_kw(appears, suppress)),
+                      FS.fused_step_sample(*part, 43, row_base=lo, **step_kw(*gate))))
+            for name, whole, half in pairs:
+                check(torch.equal(half[0], whole[0][lo:]) and torch.equal(half[1], whole[1][lo:]),
+                      f"{name} rows {lo}-63 with row_base {lo}: next/alt differ from the whole "
+                      f"launch's")
+                assert_close(torch, half[2], whole[2][lo:], 1e-7, SAMPLER_RTOL,
+                             f"{name} alt_prob with row_base {lo}")
+            say(f"K2/K3 [{rows - lo}, {vocab}] with row_base {lo}: next/alt the whole {rows}-row "
+                f"launch's rows {lo}-63 exactly, alt_prob within rtol {SAMPLER_RTOL}")
         if rows == 512:
             # the cluster size decides nothing: the first 8 rows alone (another
             # cluster size) give the same tokens with Philox
@@ -2091,16 +2126,18 @@ def train_path(torch, counters, card: str, work: Path) -> tuple:
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
     return launches, dict(timing=timing, cli_s=secs, resume_loss_diff=resume_err,
                           card_vs_cpu=err, bf16_loss_diff=bf16_diff,
-                          validation_loss=val[0]["val/validation_loss"])
+                          validation_loss=val[0]["val/validation_loss"],
+                          handles=dict(args=shards, losses={i: losses[i] for i in (1, 2, 3)}))
 
 
 # --- 9. int8 decode at GPT2-XL width -------------------------------------------------
 
 XL_D, XL_IMAGES, XL_BEAM_IMAGES = 1600, 8, 64
-# GPT2-XL's depth in (i) by default: 8 of its 48 layers, cut when phases (j)
-# and (m) joined the run to keep the whole smoke well inside its time limit
-# (the int8 path is per layer the same at any depth); --xl_layers 48 runs it whole
-XL_LAYERS = 8
+# GPT2-XL's depth in (i) by default: 4 of its 48 layers, cut when phases (j)
+# and (m) joined the run (to 8) and when phase (o) joined (to 4) to keep the
+# whole smoke well inside its time limit (the int8 path is per layer the same
+# at any depth); --xl_layers 48 runs it whole
+XL_LAYERS = 4
 INT8_ROWS = (9, 16, 72, 320)  # the paths' rows: --no_beam, evaluate, the sweep, beam
 # card against CPU for the int8 LM (bf16 activations): a logit within this
 # many bf16 steps (2^-8) of the logits' scale; a greedy or beam choice may
@@ -2438,6 +2475,7 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
     say(f"(i4) the first {INT8_SOLO} greedy requests against their solo int8 generate: "
         f"near-tie flips {flips} ({time.perf_counter() - t_sub:.1f} s)")
     t_sub = time.perf_counter()
+    o2_handles = dict(xl=xl, pixels=pixels[:XL_IMAGES])  # phase (o2) goes on from these
     del sweep, beam_call, eng, xl, q8, lm, pool, out, prompt, prompt2, card_logits
     torch.cuda.empty_cache()
 
@@ -2545,16 +2583,18 @@ def int8_path(torch, counters, card: str, work: Path, handles: dict, main_bundle
     return launches, dict(xl_layers=xl_layers, sweep=sweep_rates, beam=beam_rates,
                           serving=serve_rates, vit=vit_rates, prefill_err=err_i1, cli_s=cli_s,
                           serve_flips=flips, beam_flips=flips6,
-                          int8_bytes=dict(blocks=blocks_b, lm_head=head_b, wte=wte_b))
+                          int8_bytes=dict(blocks=blocks_b, lm_head=head_b, wte=wte_b),
+                          handles=o2_handles)
 
 
 # --- 10. GPT-J-6B: the port's GPT-J captioner and speculative decoding ----------------
 
 GPTJ_IMAGES, GPTJ_CUT = 8, 2  # the sweep's images; the CPU cut's and the checkpoint's layers
 # GPT-J-6B's depth in (j), of its 28 layers: cut for the run's time since
-# phases (k) and (m) came (the decode paths are per layer the same at any
-# depth); --gptj_layers 28 runs it whole. (j6)'s frozen int8 LM is always whole.
-GPTJ_LAYERS = 4
+# phases (k) and (m) came, to 2 when phase (o) came (the decode paths are
+# per layer the same at any depth); --gptj_layers 28 runs it whole. (j6)'s
+# frozen int8 LM is always whole.
+GPTJ_LAYERS = 2
 GPTJ_BEAM_IMAGES = {"bf16": 64, "int8": 32}  # int8 beam at half the images, for the run's time
 GPTJ_SOLO = 2  # served requests held against their solo generate
 SPEC_GAMMA, SPEC_NEW = 4, 67
@@ -2931,6 +2971,9 @@ def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle,
     check(l_cap == small_cap and l_lm == cut.cfg and isinstance(model.lm, GPTJ),
           "(j5) the GPT-J checkpoint's configs differ")
     write_read_s = time.perf_counter() - t_sub
+    # phase (o4) goes on from the float captioner and the sweep's prompts
+    o4_handles = dict(model=bj.model, cap_cfg=cap_cfg, lm_cfg=lm_cfg, vit_cfg=bj.vit_cfg,
+                      prompt=prompt[:8])
     del model, want, small, bj, lm, cut, q8, pool, prompt, pixels, img, t_prompt, d_prompt
     torch.cuda.empty_cache()
     say(f"(j5) GPT-J checkpoint ({npz_gb:.2f} GB .npz, full width, {GPTJ_CUT} layers, 1-layer "
@@ -2996,7 +3039,8 @@ def gptj_path(torch, counters, FS, S, card: str, work: Path, gpt2_bundle,
     return launches, dict(gptj_layers=gptj_layers, build_s=build_s, cut=cut_check,
                           decode=results, cli_s=cli_s, peak_gb=peak_gb, npz_gb=npz_gb,
                           sampler_v50400={
-                              name: dict(k234[name], cluster=clusters) for name in k234})
+                              name: dict(k234[name], cluster=clusters) for name in k234},
+                          handles=o4_handles)
 
 
 GPTJ_TRAIN_BATCH, GPTJ_TRAIN_STEPS, GPTJ_TRAIN_TOKENS = 16, 4, 24
@@ -3116,9 +3160,10 @@ T0_EOS, T0_STOP = 1, 5  # T5's </s>; a fixed id standing for "."
 T0_WORDS = 32100  # the tokenizer.json's vocabulary, T0's (its 28 padding rows decode to nothing)
 T0_CUT_SOLO = 8  # the cut's served requests held against their solo runs
 # T0-11B's depth in (k), of its 24 + 24 layers: cut to 8 + 8 for the run's
-# time when phase (m) came, to 6 + 6 when phase (n) came (the decode paths
-# are per layer the same at any depth); --t0_layers 24 runs it whole
-T0_LAYERS = 6
+# time when phase (m) came, to 6 + 6 when phase (n) came, to 2 + 2 when
+# phase (o) came (the decode paths are per layer the same at any depth);
+# --t0_layers 24 runs it whole
+T0_LAYERS = 2
 
 
 class T5IdTokenizer:
@@ -5135,6 +5180,446 @@ def genb_rest_path(torch, counters, FA, FS, S, card: str, work: Path, handles: d
     return serving_launches, apps_launches, rates
 
 
+# --- 15. parallelism on torch.distributed (phase (o)) ---------------------------------
+#
+# The smoke needs one card and NCCL takes one rank per GPU, so every
+# parallel path runs at world size 1 under NCCL: the code runs on CUDA
+# tensors, its collectives sit on the step (NCCL issues them even for one
+# rank), and each path reproduces the unsharded path. Multi-rank correctness
+# is the CPU tests' (gloo, 2 and 4 processes); no multi-GPU figure is taken.
+
+PAR_STEPS = 75  # the no-beam sweep's steps: (o1)'s greedy and sampled 72-row decodes
+PAR_TP_STEPS = 24  # (o4)'s GPT-J decode
+SP_BATCH, MOE_BATCH, PP_BATCH = 16, 64, 16
+
+
+def parallel_profile(torch, label: str, run, steps: int) -> tuple:
+    """Device ms and kernel launches per step of one profiled call of `run`
+    (`steps` decode steps), and the NCCL kernels among them (count and
+    device ms per step): the collectives' cost on the card. `steps` may
+    be a function read after the call. Returns them and what `run`
+    returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from clipcap_tpu_torch.core.mesh import COLLECTIVES
+
+    torch.cuda.synchronize()
+    issued = dict(COLLECTIVES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    steps = steps() if callable(steps) else steps
+    issued = sum(COLLECTIVES[k] - issued[k] for k in issued)
+    busy = launches = nccl_ms = nccl = 0
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            busy += e.duration_ns() / 1e6
+            launches += 1
+            by_name[e.name()] = by_name.get(e.name(), 0) + 1
+            if "nccl" in e.name().lower():
+                nccl += 1
+                nccl_ms += e.duration_ns() / 1e6
+    check(launches > 0, f"profile {label}: the profiler recorded no CUDA kernel")
+    out = dict(device_ms_per_step=busy / steps, launches_per_step=launches / steps,
+               nccl_kernels_per_step=nccl / steps, nccl_ms_per_step=nccl_ms / steps,
+               collectives_per_step=issued / steps, by_name=by_name)
+    say(f"profile {label}, per step of {steps}: device {out['device_ms_per_step']:.4f} ms, "
+        f"{out['launches_per_step']:.1f} kernel launches, NCCL kernels "
+        f"{out['nccl_kernels_per_step']:.2f} ({out['nccl_ms_per_step']:.4f} ms), collectives "
+        f"issued {out['collectives_per_step']:.2f}")
+    return out, result
+
+
+def launch_difference(label: str, plain: dict, par: dict) -> None:
+    """Print the kernels whose launch counts differ between a plain and a
+    parallel profile (parallel_profile's `by_name`, popped from both)."""
+    a, b = plain.pop("by_name"), par.pop("by_name")
+    diff = sorted(((b.get(k, 0) - a.get(k, 0), k) for k in set(a) | set(b)
+                   if b.get(k, 0) != a.get(k, 0)), key=lambda d: -abs(d[0]))
+    say(f"{label}: launches by kernel, parallel minus plain: "
+        + ("; ".join(f"{n:+d} {k[:70]}" for n, k in diff[:8]) if diff else "none"))
+
+
+def parallel_init(torch, work: Path) -> None:
+    """NCCL at world size 1 through the port's init_distributed, a file://
+    rendezvous in the phase's work directory; a failure fails the smoke."""
+    from clipcap_tpu_torch.core.mesh import init_distributed
+
+    rank, world = init_distributed("cuda", init_method=f"file://{work / 'nccl_rendezvous'}")
+    backend = torch.distributed.get_backend()
+    check((rank, world, backend) == (0, 1, "nccl"),
+          f"(o) init_distributed gave rank {rank} of {world} on {backend}, want 0 of 1 on nccl")
+    say(f"(o) NCCL process group: rank {rank} of {world}, backend {backend}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+
+
+def parallel_dp_decode(torch, counters, bundle) -> tuple:
+    """(o1) the main-path bundle after enable_data_parallel_decode(): the
+    no-beam sweep of 8 images x 9 top-p (72 rows, 75 steps; K1 encodes, K2
+    samples) and a greedy 72-row decode of 75 steps, token for token the
+    plain bundle's. The launch counters are set to 0 before the parallel
+    runs and read after."""
+    import dataclasses
+
+    from clipcap_tpu_torch.core.mesh import mesh_shape
+    from clipcap_tpu_torch.data.preprocessing import normalize_on_device
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.eval.samplers import NoBeamCaptionSampler
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+
+    t0 = time.perf_counter()
+    dp = CaptionerBundle(bundle.model, bundle.cap_cfg, bundle.lm_cfg, bundle.tokenizer,
+                         vit_cfg=bundle.vit_cfg, device="cuda")
+    mesh = dp.enable_data_parallel_decode()
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    pixels = normalize_on_device(torch.rand(8, 3, 224, 224, generator=gen, device="cuda"))
+    sampler = NoBeamCaptionSampler(top_p_values=TOP_P_SWEEP, max_decode_length=PAR_STEPS,
+                                   device="cuda")
+    with torch.no_grad():
+        prompt = bundle.prefix_from_pixels(pixels).repeat_interleave(len(TOP_P_SWEEP), dim=0)
+    greedy = GenerationSettings(max_new_tokens=PAR_STEPS, greedy=True)
+
+    def plain_greedy():
+        return generate(bundle.lm, prompt, greedy, device="cuda")
+
+    def dp_greedy():
+        return generate(dp.lm_decode, prompt, greedy, device="cuda",
+                        cache_constraint=dp.cache_constraint)
+
+    # the checked runs are the profiled ones; a short DP decode first sets
+    # up the data group's communicator
+    generate(dp.lm_decode, prompt, dataclasses.replace(greedy, max_new_tokens=2),
+             device="cuda", cache_constraint=dp.cache_constraint)
+    prof = {}
+    prof["plain_greedy"], want_g = parallel_profile(torch, "(o1) plain greedy 72 rows",
+                                                    plain_greedy, PAR_STEPS)
+    prof["plain_sweep"], want_s = parallel_profile(
+        torch, "(o1) plain sweep", lambda: sampler.sample_batch(bundle, pixels), PAR_STEPS)
+    counters(reset=True)
+    prof["dp_greedy"], got_g = parallel_profile(torch, "(o1) DP greedy 72 rows", dp_greedy,
+                                                PAR_STEPS)
+    prof["dp_sweep"], got_s = parallel_profile(
+        torch, "(o1) DP sweep", lambda: sampler.sample_batch(dp, pixels), PAR_STEPS)
+    launches = counters()
+    for key in ("tokens", "lengths", "stopped"):
+        check(torch.equal(got_g[key], want_g[key]), f"(o1) DP greedy {key} differ from the plain")
+    check(got_s == want_s, "(o1) the DP sweep's captions differ from the plain bundle's")
+    check(launches["fused_filter_sample"] == PAR_STEPS and launches["fused_attention"] > 0,
+          f"(o1) K2 launched {launches['fused_filter_sample']} times (want {PAR_STEPS}), K1 "
+          f"{launches['fused_attention']}")
+    launch_difference("(o1) greedy", prof["plain_greedy"], prof["dp_greedy"])
+    launch_difference("(o1) sweep", prof["plain_sweep"], prof["dp_sweep"])
+    say(f"(o1) DP decode on mesh {mesh_shape(mesh)}: greedy 72 x {PAR_STEPS} and the sweep "
+        f"(8 images x 9 top-p, K2 x{launches['fused_filter_sample']}) token for token the plain "
+        f"bundle's ({time.perf_counter() - t0:.1f} s)")
+    return launches, prof
+
+
+def parallel_int8(torch, counters, xl, pixels) -> tuple:
+    """(o2) phase (i)'s GPT2-XL int8 LM through parallel/dp.py at world 1:
+    the sweep's 72 rows, greedy and sampled (K2), 75 steps, token for token
+    the unsharded decode's."""
+    from clipcap_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.parallel.dp import dp_decode_shardings
+
+    t0 = time.perf_counter()
+    sh = dp_decode_shardings(make_mesh(MeshSpec(data=1), device_type="cuda"))
+    with torch.no_grad():
+        prompt = xl.prefix_from_pixels(pixels).repeat_interleave(len(TOP_P_SWEEP), dim=0)
+    q8 = xl.lm_decode
+    runs = {"greedy": GenerationSettings(max_new_tokens=PAR_STEPS, greedy=True),
+            "sampled": GenerationSettings(max_new_tokens=PAR_STEPS,
+                                          top_p=TOP_P_SWEEP * (prompt.shape[0] // 9))}
+    want = {name: generate(q8, prompt, st, seed=3, device="cuda") for name, st in runs.items()}
+    counters(reset=True)
+    got = {name: generate(q8, prompt, st, seed=3, device="cuda",
+                          cache_constraint=sh.constrain_cache) for name, st in runs.items()}
+    launches = counters()
+    for name in runs:
+        check(torch.equal(got[name]["tokens"], want[name]["tokens"]),
+              f"(o2) DP int8 {name} tokens differ from the unsharded decode")
+    check(launches["fused_filter_sample"] == PAR_STEPS,
+          f"(o2) K2 launched {launches['fused_filter_sample']} times, want {PAR_STEPS}")
+    secs = time.perf_counter() - t0
+    say(f"(o2) DP int8 GPT2-XL ({xl.lm_cfg.n_layer} layers) decode, {prompt.shape[0]} rows x "
+        f"{PAR_STEPS} steps greedy and sampled: tokens equal ({secs:.1f} s)")
+    return launches, dict(s=secs)
+
+
+def parallel_serving(torch, counters, bundle) -> tuple:
+    """(o3) 256 requests on 64 slots, "fused_step" (K3), through a bundle
+    after enable_data_parallel_decode(): every request's tokens the plain
+    serve's, one K3 launch per dispatched step."""
+    import dataclasses
+
+    import numpy as np
+
+    from clipcap_tpu_torch.decode.engine import GenerationSettings
+    from clipcap_tpu_torch.decode.serving import Request
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+
+    t0 = time.perf_counter()
+    dp = CaptionerBundle(bundle.model, bundle.cap_cfg, bundle.lm_cfg, bundle.tokenizer,
+                         vit_cfg=bundle.vit_cfg, device="cuda")
+    dp.enable_data_parallel_decode()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pool = bundle.project_prefix(torch.randn(SERVE_REQUESTS, bundle.cap_cfg.mapper.dim_clip,
+                                             generator=gen, device="cuda"))
+    caps = np.random.default_rng(6).integers(8, 25, SERVE_REQUESTS).tolist()
+    reqs = [Request(i, i, max_length=c) for i, c in enumerate(caps)]
+    settings = dataclasses.replace(GenerationSettings(max_new_tokens=SERVE_NEW, eos_token_id=EOS),
+                                   top_p=0.8, repetition_penalty=1.2, min_length=5,
+                                   filter_method="fused_step")
+    plain, par = (b.make_serving_engine(settings, slots=SERVE_SLOTS, steps_per_sync=SERVE_SYNC,
+                                        pipeline_depth=2).warmup() for b in (bundle, dp))
+    prof = {}
+    prof["plain"], want = parallel_profile(torch, "(o3) plain serve", lambda: plain.serve(
+        reqs, seed=7, prefix_pool=pool), lambda: plain.last_stats["steps"])
+    counters(reset=True)
+    prof["dp"], got = parallel_profile(torch, "(o3) DP serve", lambda: par.serve(
+        reqs, seed=7, prefix_pool=pool), lambda: par.last_stats["steps"])
+    launches = counters()
+    steps = par.last_stats["steps"]
+    check(sorted(got) == sorted(want) and all(got[i]["tokens"] == want[i]["tokens"]
+                                              for i in want),
+          "(o3) the DP serve's tokens differ from the plain serve's")
+    check(launches["fused_step_sample"] == steps,
+          f"(o3) K3 launched {launches['fused_step_sample']} times over {steps} steps")
+    launch_difference("(o3)", prof["plain"], prof["dp"])
+    say(f"(o3) DP serving, {SERVE_REQUESTS} requests on {SERVE_SLOTS} slots, \"fused_step\": "
+        f"every request equals the plain serve's; {steps} steps, K3 x"
+        f"{launches['fused_step_sample']} ({time.perf_counter() - t0:.1f} s)")
+    return launches, prof
+
+
+def parallel_tp(torch, counters, handles: dict) -> tuple:
+    """(o4) phase (j)'s GPT-J-6B bf16 captioner after
+    enable_tensor_parallel(1): prefill logits of the sweep's 72 rows bit for
+    bit the untouched model's, and its greedy and sampled (K2 at [72, 50400])
+    decodes token for token."""
+    from clipcap_tpu_torch.core.mesh import mesh_shape
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+    from clipcap_tpu_torch.models.bundle import CaptionerBundle
+
+    t0 = time.perf_counter()
+    model, prompt = handles["model"], handles["prompt"]
+    lm = model.lm
+    prompt = prompt[:8].repeat_interleave(len(TOP_P_SWEEP), dim=0)
+    runs = {"greedy": GenerationSettings(max_new_tokens=PAR_TP_STEPS, greedy=True),
+            "sampled": GenerationSettings(max_new_tokens=PAR_TP_STEPS,
+                                          top_p=TOP_P_SWEEP * (prompt.shape[0] // 9))}
+
+    def decode(m, name, constraint=None):
+        return generate(m, prompt, runs[name], seed=9, device="cuda",
+                        cache_constraint=constraint)["tokens"]
+
+    with torch.no_grad():
+        want_logits = lm.prefill(prompt, lm.init_cache(prompt.shape[0], prompt.shape[1]))[0]
+    prof = {}
+    prof["plain"], want_sampled = parallel_profile(
+        torch, "(o4) plain GPT-J sampled 72 rows", lambda: decode(lm, "sampled"), PAR_TP_STEPS)
+    want = {"greedy": decode(lm, "greedy"), "sampled": want_sampled}
+    tp = CaptionerBundle(model, handles["cap_cfg"], handles["lm_cfg"], None,
+                         vit_cfg=handles["vit_cfg"], device="cuda")
+    mesh = tp.enable_tensor_parallel(1)
+    check(lm.tp_group is not None and lm.blocks[0].n_head == handles["lm_cfg"].n_head,
+          "(o4) the LM is not tensor-parallel over its 16 heads")
+    counters(reset=True)
+    with torch.no_grad():
+        got_logits = lm.prefill(prompt, lm.init_cache(prompt.shape[0], prompt.shape[1]))[0]
+    prof["tp"], got_sampled = parallel_profile(
+        torch, "(o4) TP GPT-J sampled 72 rows",
+        lambda: decode(tp.lm_decode, "sampled", tp.cache_constraint), PAR_TP_STEPS)
+    got = {"greedy": decode(tp.lm_decode, "greedy", tp.cache_constraint), "sampled": got_sampled}
+    launches = counters()
+    check(torch.equal(got_logits, want_logits), "(o4) TP prefill logits are not the untouched "
+          f"model's bit for bit (max abs err {max_abs(got_logits, want_logits):.3e})")
+    for name in runs:
+        check(torch.equal(got[name], want[name]), f"(o4) TP {name} tokens differ")
+    check(launches["fused_filter_sample"] == PAR_TP_STEPS,
+          f"(o4) K2 launched {launches['fused_filter_sample']} times, want {PAR_TP_STEPS}")
+    launch_difference("(o4)", prof["plain"], prof["tp"])
+    say(f"(o4) TP GPT-J-6B ({handles['lm_cfg'].n_layer} layers, bf16) on mesh "
+        f"{mesh_shape(mesh)}: prefill logits [72, 1, 50400] bit for bit; greedy and sampled "
+        f"72 x {PAR_TP_STEPS} token for token; K2 at [72, 50400] x"
+        f"{launches['fused_filter_sample']} ({time.perf_counter() - t0:.1f} s)")
+    return launches, prof
+
+
+def parallel_zero_train(torch, work: Path, args: list, plain_losses: dict) -> dict:
+    """(o5) `torchrun --nproc_per_node 1 -m clipcap_tpu_torch.cli.train
+    --mesh_data 1 --zero_shard_params` on phase (h)'s shards, 3 steps: each
+    step's loss (h)'s plain run's within RESUME_RTOL, and the checkpoint
+    loads into the plain trainer."""
+    from clipcap_tpu_torch.cli import train as train_cli
+    from clipcap_tpu_torch.core.config import TrainConfig
+    from clipcap_tpu_torch.models.captioner import Captioner
+    from clipcap_tpu_torch.train.checkpoints import restore_checkpoint
+    from clipcap_tpu_torch.train.train_step import create_train_state
+
+    t0 = time.perf_counter()
+    out_dir = work / "train_zero"
+    zero_args = args + ["--max_steps", "3", "--save_every_steps", "0", "--mesh_data", "1",
+                        "--zero_shard_params", "--output_dir", str(out_dir)]
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "1", "-m", "clipcap_tpu_torch.cli.train"]
+                         + zero_args, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"(o5) torchrun cli.train --zero_shard_params exited "
+          f"{run.returncode}: {run.stdout[-1500:]} {run.stderr[-3000:]}")
+    losses, _ = train_metrics(out_dir)
+    check(sorted(losses) == [1, 2, 3], f"(o5) logged steps {sorted(losses)}")
+    diffs = {i: abs(losses[i] - plain_losses[i]) / abs(plain_losses[i]) for i in losses}
+    check(max(diffs.values()) <= RESUME_RTOL,
+          f"(o5) ZeRO losses {losses} against (h)'s {plain_losses}")
+    cap_cfg, lm_cfg, kw = train_cli.build_configs(train_cli.build_argparser().parse_args(
+        zero_args))
+    template, _ = create_train_state(1, cap_cfg, lm_cfg, TrainConfig(total_steps=3, **kw),
+                                     model=Captioner(cap_cfg, lm_cfg, device="cuda", seed=1),
+                                     device="cuda")
+    state = restore_checkpoint(str(out_dir / "demo_model_final"), template)
+    check(int(state.step) == 3 and state.shards is None
+          and all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+          "(o5) the ZeRO checkpoint does not load into the plain trainer at step 3")
+    secs = time.perf_counter() - t0
+    say(f"(o5) torchrun --nproc_per_node 1 cli.train --mesh_data 1 --zero_shard_params, 3 "
+        f"steps on (h)'s shards: losses {[losses[i] for i in (1, 2, 3)]} against (h)'s "
+        f"{[plain_losses[i] for i in (1, 2, 3)]} (max relative diff "
+        f"{max(diffs.values()):.3e}); the checkpoint restores into the plain trainer at step 3 "
+        f"({secs:.1f} s with the process's start)")
+    return dict(losses=losses, max_rel_diff=max(diffs.values()), s=secs)
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(
+        min=1e-30))
+
+
+def parallel_pp(torch) -> dict:
+    """(o6) one GPT-2 124M captioner train step's loss and gradients through
+    make_gpt2_pp_apply at pipe 1, 2 micro-batches, batch 16, against the
+    plain step's, within 1e-5 relative (each gradient's max abs error over
+    its max abs)."""
+    import functools
+
+    from clipcap_tpu_torch.core.config import CaptionerConfig, GPT2Config, MapperConfig, TrainConfig
+    from clipcap_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from clipcap_tpu_torch.models.captioner import Captioner
+    from clipcap_tpu_torch.parallel.pp import make_gpt2_pp_apply
+    from clipcap_tpu_torch.train import train_step as TTS
+
+    t0 = time.perf_counter()
+    cap_cfg = CaptionerConfig(lm_type="gpt2", mapper=MapperConfig())
+    lm_cfg = GPT2Config.variant("gpt2")
+    train_cfg = TrainConfig(total_steps=10, bf16_compute=False, remat=False)
+    model = Captioner(cap_cfg, lm_cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    tokens = torch.randint(1, lm_cfg.vocab_size, (PP_BATCH, 24), generator=gen, device="cuda")
+    tokens[:, 18:] = -1
+    batch = {"tokens": tokens, "prefix": torch.randn(PP_BATCH, cap_cfg.mapper.dim_clip,
+                                                     generator=gen, device="cuda")}
+    names = [n for n, keep in model.trainable_filter().items() if keep]
+    mesh = make_mesh(MeshSpec(pipe=1), device_type="cuda")
+    pp_apply = functools.partial(make_gpt2_pp_apply(lm_cfg, mesh, n_micro=2), model.lm)
+    loss, grads, _ = TTS.compute_grads(model, batch, names, cap_cfg, train_cfg)
+    pp_loss, pp_grads, _ = TTS.compute_grads(model, batch, names, cap_cfg, train_cfg,
+                                             lm_apply=pp_apply)
+    loss_err = abs(float(pp_loss) - float(loss)) / abs(float(loss))
+    grad_err = max(_rel_err(g, w) for g, w in zip(pp_grads, grads))
+    check(loss_err <= 1e-5 and grad_err <= 1e-5,
+          f"(o6) the pipelined step's loss ({loss_err:.3e}) or gradients ({grad_err:.3e}) are "
+          "not the plain step's within 1e-5 relative")
+    secs = time.perf_counter() - t0
+    say(f"(o6) GPT-2 124M captioner step through make_gpt2_pp_apply (pipe 1, 2 micro-batches, "
+        f"batch {PP_BATCH}): loss {float(pp_loss):.6f} vs {float(loss):.6f} (relative "
+        f"{loss_err:.3e}); worst gradient relative error {grad_err:.3e} over {len(names)} "
+        f"tensors ({secs:.1f} s)")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, s=secs)
+
+
+def parallel_sp(torch, handles: dict) -> dict:
+    """(o7) phase (m)'s BLIP ViT-L/16 at 384 px (T=577) in f32 through
+    make_vit_sp_apply at model 1, batch 16, against ViT.forward, which runs
+    K1: within 1e-4 relative."""
+    import copy
+
+    from clipcap_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from clipcap_tpu_torch.data.preprocessing import normalize_on_device
+    from clipcap_tpu_torch.parallel.sp import make_vit_sp_apply
+
+    t0 = time.perf_counter()
+    vit = handles["visual"]
+    vit = vit if vit.cls.dtype == torch.float32 else copy.deepcopy(vit).float()
+    cfg = handles["vit_cfg"]
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    pixels = normalize_on_device(torch.rand(SP_BATCH, 3, cfg.image_size, cfg.image_size,
+                                            generator=gen, device="cuda"))
+    apply = make_vit_sp_apply(cfg, make_mesh(MeshSpec(model=1), device_type="cuda"))
+    with torch.no_grad():
+        want = vit(pixels, output="tokens")
+        got = apply(vit, pixels, output="tokens")
+    err = _rel_err(got, want)
+    check(tuple(got.shape) == (SP_BATCH, cfg.grid ** 2 + 1, cfg.width) and err <= 1e-4,
+          f"(o7) the ring-attention ViT {tuple(got.shape)} is {err:.3e} relative from ViT.forward")
+    secs = time.perf_counter() - t0
+    say(f"(o7) BLIP ViT-L/16 at {cfg.image_size} px (T={cfg.grid ** 2 + 1}), batch {SP_BATCH}, "
+        f"f32: make_vit_sp_apply at model 1 within {err:.3e} relative of ViT.forward (K1) "
+        f"({secs:.1f} s)")
+    return dict(rel_err=err, s=secs)
+
+
+def parallel_ep(torch) -> dict:
+    """(o8) the MoE mapper at MapperConfig's defaults (512 -> 768, 8 layers,
+    8 heads), 8 experts, top-2, capacity 1.25, batch 64: output, aux loss and
+    the gradients with the expert-parallel path at model 1 equal to
+    moe.apply's within 1e-5 relative."""
+    from clipcap_tpu_torch.core.config import MapperConfig
+    from clipcap_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from clipcap_tpu_torch.models import moe
+    from clipcap_tpu_torch.parallel.ep import expert_constraint
+
+    t0 = time.perf_counter()
+    cfg = MapperConfig()
+    moe_cfg = moe.MoEConfig(n_experts=8, n_top=2, capacity_factor=1.25)
+    mapper = moe.init(cfg, moe_cfg, device="cuda", seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    prefix = torch.randn(MOE_BATCH, cfg.dim_clip, generator=gen, device="cuda")
+    ep = expert_constraint(make_mesh(MeshSpec(model=1), device_type="cuda"))
+
+    def run(constraint):
+        out, aux = moe.apply(mapper, prefix, expert_constraint=constraint)
+        loss = out.square().sum() + moe_cfg.aux_loss_weight * aux
+        return out.detach(), aux.detach(), torch.autograd.grad(loss, list(mapper.parameters()))
+
+    want, got = run(None), run(ep)
+    errs = dict(out=_rel_err(got[0], want[0]), aux=_rel_err(got[1], want[1]),
+                grads=max(_rel_err(g, w) for g, w in zip(got[2], want[2]) if w.abs().max() > 0))
+    check(max(errs.values()) <= 1e-5, f"(o8) the expert-parallel MoE mapper against moe.apply: "
+          f"{errs}")
+    secs = time.perf_counter() - t0
+    say(f"(o8) MoE mapper (8 layers, 512 -> 768, 8 experts, top-2, capacity 1.25), batch "
+        f"{MOE_BATCH}: the expert-parallel path at model 1 within {errs} relative of moe.apply, "
+        f"forward and gradient ({secs:.1f} s)")
+    return dict(rel_err=errs, s=secs)
+
+
+def parallel_dryrun(torch) -> dict:
+    """(o9) tools/dryrun_multichip's drive on the card in this process's
+    NCCL group (world size 1; (o5) runs a torchrun process): its OK line,
+    the 1-D mesh skipping pp, tp, sp and ep, as JAX's drive does."""
+    from clipcap_tpu_torch.tools.dryrun_multichip import dryrun
+
+    t0 = time.perf_counter()
+    line = dryrun("cuda")
+    check(line.startswith("dryrun_multichip OK") and "dp_int8_decode=ok, dp_serving=ok" in line,
+          f"(o9) dryrun_multichip: {line}")
+    secs = time.perf_counter() - t0
+    say(f"(o9) {line} ({secs:.1f} s)")
+    return dict(line=line, s=secs)
+
+
 def profile_call(torch, label: str, run, wall_ms: float) -> dict:
     """Where the time of one call goes: the device time of each kernel
     (torch.profiler, CUPTI), summed, as a share of the wall time of the same
@@ -5272,6 +5757,7 @@ def main() -> int:
     work = ROOT / "build" / "smoke_infer"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    par, par_launches, par_s = {}, {}, {}  # phase (o): results, launches and seconds by part
     try:
         infer_launches, infer_rates, handles = infer_path(torch, counters, bundle, card, work)
         eval_launches, eval_rates = evaluate_path(torch, counters, card, work, handles,
@@ -5282,8 +5768,22 @@ def main() -> int:
         int8_launches, int8_rates = int8_path(torch, counters, card, work, handles, bundle,
                                                 args.xl_layers)
         del handles
+        # phase (o), on the handles of the phases it goes on from
+        t_par = time.perf_counter()
+        parallel_init(torch, work)
+        int8_handles = int8_rates.pop("handles")
+        par_launches["o2"], par["o2"] = parallel_int8(torch, counters, int8_handles["xl"],
+                                                      int8_handles["pixels"])
+        del int8_handles
+        torch.cuda.empty_cache()
+        par_s["o2"] = time.perf_counter() - t_par
         gptj_launches, gptj_rates = gptj_path(torch, counters, FS, S, card, work, bundle,
                                               args.gptj_layers)
+        t_par = time.perf_counter()
+        gptj_handles = gptj_rates.pop("handles")
+        par_launches["o4"], par["o4"] = parallel_tp(torch, counters, gptj_handles)
+        del gptj_handles
+        par_s["o4"] = time.perf_counter() - t_par
         torch.cuda.empty_cache()
         gptj_rates["int8_prefix_train"] = gptj_int8_train(torch, card)
         torch.cuda.empty_cache()
@@ -5296,11 +5796,31 @@ def main() -> int:
         genb_serve_launches, genb_apps_launches, rest_rates = genb_rest_path(
             torch, counters, FA, FS, S, card, work, genb_handles)
         k1["at_genb_serving_shapes"] = rest_rates.pop("k1_shapes")
+        t_par = time.perf_counter()
+        par["o7"] = parallel_sp(torch, genb_handles)
+        par_s["o7"] = time.perf_counter() - t_par
         del genb_handles
         torch.cuda.empty_cache()
         train_launches, train_rates = train_path(torch, counters, card, work)
+        t_par = time.perf_counter()
+        train_handles = train_rates.pop("handles")
+        par["o5"] = parallel_zero_train(torch, work, train_handles["args"],
+                                        train_handles["losses"])
+        par_launches["o1"], par["o1"] = parallel_dp_decode(torch, counters, bundle)
+        par_launches["o3"], par["o3"] = parallel_serving(torch, counters, bundle)
+        par["o6"] = parallel_pp(torch)
+        par["o8"] = parallel_ep(torch)
+        par["o9"] = parallel_dryrun(torch)
+        par_s["o1,o3,o5,o6,o8,o9"] = time.perf_counter() - t_par
+        say("parallel phase (o), seconds by part: " + ", ".join(f"{k} {v:.1f}"
+                                                                for k, v in par_s.items()))
     finally:
+        # before the rendezvous file goes: NCCL's monitor reads it until then
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
+    parallel_launches = {k: sum(launches[k] for launches in par_launches.values())
+                         for k in par_launches["o1"]}
     # each kernel that a path runs was launched there (K4 has no path)
     paths = {"fused_attention": {"main": main_launches["fused_attention"],
                                  "infer": infer_launches["fused_attention"],
@@ -5312,7 +5832,8 @@ def main() -> int:
                                  "genb": genb_launches["fused_attention"],
                                  "serving_genb": genb_serve_launches["fused_attention"],
                                  "genb_apps": genb_apps_launches["fused_attention"],
-                                 "train": train_launches["fused_attention"]},
+                                 "train": train_launches["fused_attention"],
+                                 "parallel": parallel_launches["fused_attention"]},
              "fused_filter_sample": {"main": main_launches["fused_filter_sample"],
                                      "serving": serve_launches["fused_filter_sample"],
                                      "infer": infer_launches["fused_filter_sample"],
@@ -5323,13 +5844,15 @@ def main() -> int:
                                      "genb": genb_launches["fused_filter_sample"],
                                      "serving_genb": genb_serve_launches["fused_filter_sample"],
                                      "genb_apps": genb_apps_launches["fused_filter_sample"],
-                                     "train": train_launches["fused_filter_sample"]},
+                                     "train": train_launches["fused_filter_sample"],
+                                     "parallel": parallel_launches["fused_filter_sample"]},
              "fused_step_sample": {"main": main_launches["fused_step_sample"],
                                    "serving": serve_launches["fused_step_sample"],
                                    "int8": int8_launches["fused_step_sample"],
                                    "gptj": gptj_launches["fused_step_sample"],
                                    "t5": t5_launches["fused_step_sample"],
-                                   "serving_genb": genb_serve_launches["fused_step_sample"]},
+                                   "serving_genb": genb_serve_launches["fused_step_sample"],
+                                   "parallel": parallel_launches["fused_step_sample"]},
              "fused_filter": {"kernel_phase": k4_launches}}
     for name, by_path in paths.items():
         if name != "fused_filter":
@@ -5374,6 +5897,7 @@ def main() -> int:
     say(f"genb on {card}: " + json.dumps(genb_rates))
     say(f"genb serving and apps on {card}: " + json.dumps(rest_rates))
     say(f"train on {card}: " + json.dumps(train_rates))
+    say(f"parallel on {card}: " + json.dumps(par))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

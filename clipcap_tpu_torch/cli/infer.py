@@ -19,6 +19,11 @@ speculative greedy decode, DRAFT's captioner proposing and CKPT's
 verifying (beam search off). `folder_demo_pixels` is the part below the file
 reading (pixels in, captions and scores out), callable without PIL. All of
 it runs on the bundle's device, the card unless `--device cpu`.
+
+`--tensor_parallel N` shards a GPT-J checkpoint's heads over N cards, as
+the JAX CLI's `bundle.enable_tensor_parallel(N)`: run one process per card,
+`torchrun --nproc_per_node N -m clipcap_tpu_torch.cli.infer ...`. Every
+rank captions every image; only global rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -32,10 +37,6 @@ import numpy as np
 import torch
 
 DEFAULT_TOP_P = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md item {item})")
 
 
 def _prompt(bundle, prefix_embed: torch.Tensor, text_prefix: Optional[str]) -> torch.Tensor:
@@ -73,7 +74,8 @@ def _speculative_captions(bundle, draft_bundle, pixels, visual_feats, prompt,
                              max_new_tokens=generation_kwargs.get("entry_length", 67),
                              gamma=generation_kwargs.get("gamma", 4),
                              eos_token_id=bundle.tokenizer.encode_text(".")[0],
-                             device=bundle.device)
+                             device=bundle.device,
+                             target_cache_constraint=bundle.cache_constraint)
     return trim_and_decode(out, bundle.tokenizer, strip_special=True)
 
 
@@ -97,7 +99,7 @@ def _captions_from_pixels(bundle, clip_scoring, image_tensor, number_to_generate
                           beam_size=generation_kwargs.get("beam_size", 5),
                           max_new_tokens=generation_kwargs.get("entry_length", 67),
                           stop_token_id=bundle.tokenizer.encode_text(".")[0],
-                          device=bundle.device)
+                          device=bundle.device, cache_constraint=bundle.cache_constraint)
         captions = [best_beam_text(out, bundle.tokenizer)]
     else:
         sampler = NoBeamCaptionSampler(
@@ -143,7 +145,8 @@ def caption_pixels(bundle, clip_scoring, pixels, number_to_generate: int = 1,
             res = beam_search_batched(
                 bundle.lm_decode, prompt, beam_size=generation_kwargs.get("beam_size", 5),
                 max_new_tokens=generation_kwargs.get("entry_length", 67),
-                stop_token_id=bundle.tokenizer.encode_text(".")[0], device=bundle.device)
+                stop_token_id=bundle.tokenizer.encode_text(".")[0], device=bundle.device,
+                cache_constraint=bundle.cache_constraint)
             out.extend([t] for t in best_beam_texts(res, bundle.tokenizer))
         return out
     for image_tensor in pixels:
@@ -161,8 +164,12 @@ def folder_demo_pixels(bundle, clip_scoring, pixels, names: Sequence[str], metad
     """folder_demo below the file reading: preprocessed pixels [N, 3, S, S],
     one name (the image's path) and one metadata dict each -> captions,
     per-image and corpus scores of the captions against each metadata's
-    `alt` text, written to `{out_filename_prefix}_shutterstock.json`."""
+    `alt` text, written to `{out_filename_prefix}_shutterstock.json` (by
+    global rank 0 only, which alone prints, in a multi-process run)."""
+    from ..core.mesh import is_writer
     from ..eval.scoring import generate_scores_full
+
+    say = print if is_writer() else (lambda *a, **k: None)
 
     metadata = list(metadata) if metadata is not None else [{} for _ in names]
     all_captions = caption_pixels(bundle, clip_scoring, pixels,
@@ -172,8 +179,8 @@ def folder_demo_pixels(bundle, clip_scoring, pixels, names: Sequence[str], metad
     sample_data = {}
     scoring_gts, scoring_res, image_id_to_url = {}, {}, {}
     for image_id, (name, meta, captions) in enumerate(zip(names, metadata, all_captions)):
-        print(name)
-        print(captions)
+        say(name)
+        say(captions)
         url = meta.get("src", str(name))
         original_caption = meta.get("alt", "")
         sample_data[url] = {"original_caption": original_caption,
@@ -183,14 +190,15 @@ def folder_demo_pixels(bundle, clip_scoring, pixels, names: Sequence[str], metad
         image_id_to_url[image_id] = url
 
     scores, img_scores = generate_scores_full(scoring_gts, scoring_res)
-    print("Scores")
-    print(scores)
+    say("Scores")
+    say(scores)
     for img_id, s in img_scores.items():
         sample_data[image_id_to_url[img_id]]["scores"] = s
-    out_path = f"{out_filename_prefix}_shutterstock.json"
-    with open(out_path, "w+") as f:
-        json.dump(sample_data, f)
-    print(f"wrote {out_path}")
+    if is_writer():
+        out_path = f"{out_filename_prefix}_shutterstock.json"
+        with open(out_path, "w+") as f:
+            json.dump(sample_data, f)
+        print(f"wrote {out_path}")
     return sample_data
 
 
@@ -233,7 +241,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--text_prefix", default=None)
     p.add_argument("--no_beam", action="store_true")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="model-axis size for tensor-parallel decode (not ported: must be 1)")
+                   help="model-axis size for tensor-parallel GPT-J decode (heads and KV cache "
+                        "sharded over this many cards; one torchrun process per card)")
     p.add_argument("--speculative_draft_checkpoint", default=None,
                    help="checkpoint of a small captioner (its own mapper and LM, the same "
                         "tokenizer) used as the speculative-decode draft; implies no-beam "
@@ -248,16 +257,26 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_argparser().parse_args(argv)
-    # options of the JAX CLI that the port does not have yet: refuse, never ignore
-    if args.tensor_parallel > 1:
-        raise _not_ported("--tensor_parallel > 1", 12)
+    from ..core.mesh import process_group_scope
 
+    args = build_argparser().parse_args(argv)
+    with process_group_scope():
+        return _main(args)
+
+
+def _main(args):
+    from ..core.mesh import init_distributed, is_writer, launched_world_size, mesh_shape
     from ..eval.clip_scoring import ClipScoring
     from .loading import load_captioner_bundle, load_clip_ranker
 
+    if launched_world_size() > 1:
+        init_distributed(args.device)  # each rank on its own card before the weights load
     bundle = load_captioner_bundle(args.checkpoint_path, args.tokenizer_vocab_dir,
                                    device=args.device)
+    if args.tensor_parallel > 1:
+        mesh = bundle.enable_tensor_parallel(args.tensor_parallel)
+        if is_writer():
+            print(f"tensor-parallel decode over mesh {mesh_shape(mesh)}")
     if args.int8_decode:
         bundle.enable_int8_decode()
         print("int8 weight-streaming decode enabled")

@@ -20,19 +20,22 @@ Data paths:
 With --acc_grad_batches A, each step takes A loader batches, stacked on
 a leading axis, and an epoch has 1/A as many steps (the JAX CLI hands the
 step one unstacked batch). Everything runs on the card unless
-`--device cpu`. One card: --mesh_data
-takes -1 or 1 and --mesh_model 1; other layouts and --zero_shard_params
-wait for the parallel port (ROADMAP.md item 12). --resume_from takes a
-checkpoint directory this CLI wrote (`{prefix}_latest` and the others);
-the run continues at the step after it.
+`--device cpu`. --resume_from takes a checkpoint directory this CLI wrote
+(`{prefix}_latest` and the others); the run continues at the step after
+it.
+
+Several cards: one process per card, `torchrun --nproc_per_node N -m
+clipcap_tpu_torch.cli.train ...`, on JAX's (data, model) mesh: `data` is
+world // --mesh_model with --mesh_data -1, and the model ranks are
+replicas. Every rank reads the same global batches and trains on its rows;
+--zero_shard_params keeps ZeRO shards of the masters and moments
+(train/train_step.py). Global rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-
-from .infer import _not_ported
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -83,11 +86,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    action="store_true", default=True)
     p.add_argument("--no_gradient_checkpointing", dest="remat", action="store_false")
     p.add_argument("--use_16bit_precision", action="store_true", default=True)
-    # distribution: one card until the parallel port (ROADMAP.md item 12)
-    p.add_argument("--mesh_data", type=int, default=-1, help="-1 = all devices (one card)")
+    # distribution: JAX's (data, model) mesh over the torchrun world
+    p.add_argument("--mesh_data", type=int, default=-1, help="-1 = world // mesh_model")
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--zero_shard_params", action="store_true",
-                   help="ZeRO-style param/opt-state sharding (not ported)")
+                   help="ZeRO-style param/opt-state sharding over the data axis")
     # logging / checkpoints / validation
     p.add_argument("--output_dir", default="./models/")
     p.add_argument("--output_name_prefix", default="demo_model")
@@ -166,13 +169,32 @@ def build_configs(args):
     return cap_cfg, lm_cfg, train_cfg_kwargs
 
 
-def _check_one_card(args) -> None:
-    """The layouts one card can take; refuse the rest, never ignore them."""
-    if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
-        raise _not_ported(f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model} "
-                          "(one card only: -1 or 1, and 1)", 12)
-    if args.zero_shard_params:
-        raise _not_ported("--zero_shard_params", 12)
+def _make_mesh(args):
+    """JAX's layout (clipcap_tpu/cli/train.py:253-277) over the torchrun
+    world, or None for one process asked for no mesh. `data` is
+    world // mesh_model with --mesh_data -1; a batch that `data` does not
+    divide shrinks it to the largest divisor of both, with JAX's warning.
+    A mesh that does not take the whole world raises JAX's ValueError,
+    before any process group is joined."""
+    from ..core.mesh import MeshSpec, check_mesh, launched_world_size, make_mesh
+
+    world = launched_world_size()
+    if (world == 1 and args.mesh_data in (-1, 1) and args.mesh_model == 1
+            and not args.zero_shard_params):
+        return None
+    data_axis = (max(1, world // args.mesh_model) if args.mesh_data == -1
+                 else args.mesh_data)
+    if args.batch_size % data_axis != 0:
+        fallback = max(d for d in range(1, data_axis + 1)
+                       if args.batch_size % d == 0 and data_axis % d == 0)
+        print(f"WARNING: batch_size {args.batch_size} not divisible by data axis "
+              f"{data_axis}; using data={fallback}")
+        data_axis = fallback
+    spec = MeshSpec(data=data_axis, model=args.mesh_model)
+    check_mesh(spec, world)
+    import torch
+
+    return make_mesh(spec, device_type=torch.device(args.device).type)
 
 
 def train(args) -> dict:
@@ -187,8 +209,11 @@ def train(args) -> dict:
     from ..train.trainer import fit
     from ..utils.logging import MetricLogger
 
-    _check_one_card(args)
-    print("Args:", vars(args))
+    from ..core.mesh import is_writer
+
+    mesh = _make_mesh(args)
+    if is_writer():
+        print("Args:", vars(args))
     cap_cfg, lm_cfg, train_cfg_kwargs = build_configs(args)
     tokenizer = create_tokenizer(args.language_model_type, args.tokenizer_vocab_dir)
 
@@ -243,17 +268,20 @@ def train(args) -> dict:
             print("WARNING: no --visual_checkpoint; random visual encoder weights")
 
     state, tx = create_train_state(args.seed, cap_cfg, lm_cfg, train_cfg, model=model,
-                                   device=args.device)
+                                   device=args.device, mesh=mesh,
+                                   zero=args.zero_shard_params)
     if args.resume_from:
         # the reference has no explicit resume wiring; its "latest"
         # checkpoints exist for exactly this (train.py:37-42)
         state = restore_checkpoint(args.resume_from, template=state)
-        print(f"resumed from {args.resume_from} at step {int(state.step)}")
+        if is_writer():
+            print(f"resumed from {args.resume_from} at step {int(state.step)}")
 
     Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    logger = MetricLogger(jsonl_path=str(Path(args.output_dir) / "metrics.jsonl"),
-                          use_wandb=args.use_wandb, wandb_project=args.wandb_project,
-                          wandb_name=args.wandb_name)
+    writer = is_writer()
+    logger = MetricLogger(jsonl_path=str(Path(args.output_dir) / "metrics.jsonl") if writer
+                          else None, use_wandb=args.use_wandb and writer,
+                          wandb_project=args.wandb_project, wandb_name=args.wandb_name)
     saver = CheckpointSaver(args.output_dir, args.output_name_prefix,
                             save_every_n_epochs=args.save_every_epochs,
                             save_every_n_steps=args.save_every_steps)
@@ -263,15 +291,14 @@ def train(args) -> dict:
     if args.valid_json_path and not use_prefix_shards:
         validate_fn = _build_validator(args, cap_cfg, lm_cfg, tokenizer, vit_cfg, preprocess)
 
-    if cap_cfg.prefix_only:
-        print("Train only Prefix.")
-    else:
-        print("Train both Prefix and Language Model.")
+    if writer:
+        print("Train only Prefix." if cap_cfg.prefix_only
+              else "Train both Prefix and Language Model.")
 
     try:
         state = fit(state, tx, cap_cfg, lm_cfg, train_cfg, data_iter,
                     steps_per_epoch=steps_per_epoch, checkpoint_saver=saver, logger=logger,
-                    validate_fn=validate_fn, visual_cfg=vit_cfg)
+                    validate_fn=validate_fn, visual_cfg=vit_cfg, mesh=mesh)
     finally:
         logger.close()
     return {"state": state, "total_steps": total_steps}
@@ -352,8 +379,11 @@ def _build_validator(args, cap_cfg, lm_cfg, tokenizer, vit_cfg, preprocess):
 
 
 def main(argv=None):
+    from ..core.mesh import process_group_scope
+
     args = build_argparser().parse_args(argv)
-    return train(args)
+    with process_group_scope():
+        return train(args)
 
 
 if __name__ == "__main__":

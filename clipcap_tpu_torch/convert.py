@@ -133,6 +133,31 @@ def mapper_state_dict(params: dict) -> StateDict:
     return sd
 
 
+def moe_mapper_from_jax(params: dict) -> StateDict:
+    """clipcap_tpu.models.moe params (the dense mapper's tree with each
+    layer's mlp an expert bank {gate: {w}, w1, b1, w2, b2} stacked on [L])
+    -> clipcap_tpu_torch.models.moe.MoEMapper. The banks keep JAX's
+    layout; the rest converts as mapper_state_dict does."""
+    layers = params["layers"]
+    n = np.asarray(layers["ln1"]["g"]).shape[0]
+    sd = _lin("linear", params["linear"]["w"], params["linear"]["b"])
+    sd["prefix_const"] = np.asarray(params["prefix_const"])
+    if "pos_embeddings" in params:
+        sd["pos_embeddings"] = np.asarray(params["pos_embeddings"])
+    mlp = layers["mlp"]
+    for i in range(n):
+        p = f"layers.{i}"
+        sd.update(_ln(f"{p}.ln1", layers["ln1"], i))
+        sd.update(_ln(f"{p}.ln2", layers["ln2"], i))
+        sd.update(_lin(f"{p}.wq", layers["attn"]["wq"], layer=i))
+        sd.update(_lin(f"{p}.wkv", layers["attn"]["wkv"], layer=i))
+        sd.update(_lin(f"{p}.wo", layers["attn"]["wo"], layers["attn"]["bo"], i))
+        sd[f"{p}.mlp.gate"] = np.asarray(mlp["gate"]["w"])[i]
+        for leaf in ("w1", "b1", "w2", "b2"):
+            sd[f"{p}.mlp.{leaf}"] = np.asarray(mlp[leaf])[i]
+    return sd
+
+
 def gpt2_state_dict(params: dict) -> StateDict:
     """clipcap_tpu.models.gpt2 params -> clipcap_tpu_torch.models.gpt2.GPT2."""
     sd = {"wte": np.asarray(params["wte"]), "wpe": np.asarray(params["wpe"])}

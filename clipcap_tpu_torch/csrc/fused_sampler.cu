@@ -74,7 +74,9 @@
 //
 // Random numbers: without injected noise, u ~ U(0,1) comes from a
 // Philox-4x32-10 counter generator keyed by the caller's 64-bit seed with the
-// counter (token, row). Same distribution as jax.random.gumbel or the TPU
+// counter (token, row_base + row), row_base being a data-parallel shard's
+// first global row (0 otherwise), so a row draws the same noise whatever the
+// number of ranks. Same distribution as jax.random.gumbel or the TPU
 // core PRNG, different draws: trajectories are not bit-comparable.
 
 #include <cooperative_groups.h>
@@ -472,7 +474,7 @@ sampler_kernel(const float* __restrict__ logits, const float* __restrict__ top_k
                float* __restrict__ alt_prob_out, float* __restrict__ eos_lp_out,
                float* __restrict__ filtered_out, int vocab,
                int flags, int iters, float penalty, float inv_temp, int eos_id,
-               unsigned long long seed) {
+               unsigned long long seed, int row_base) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ LoadStats part_stats[WARPS];
   __shared__ LoadStats slot_stats;
@@ -613,7 +615,7 @@ sampler_kernel(const float* __restrict__ logits, const float* __restrict__ top_k
       if (x == -INFINITY) continue;
       const int gj = start + j;
       if (flags & ALT_PROB) sf += expf(x - hi0);
-      const float gn = (flags & NOISE) ? noise[off + j] : gumbel(philox(gj, row, k0, k1));
+      const float gn = (flags & NOISE) ? noise[off + j] : gumbel(philox(gj, row_base + row, k0, k1));
       const float p = x + gn;
       if (!(p > -INFINITY)) continue;
       const Top2 one = {p, x, gj, -INFINITY, 0.f, 0x7fffffff};
@@ -686,7 +688,7 @@ int launch(const float* logits, const float* top_k, const float* top_p, const in
            const float* suppress, const float* noise, int* next_out, int* alt_out,
            float* alt_prob_out, float* eos_lp_out, float* filtered_out, int rows, int vocab,
            int flags, int iters, float penalty, float inv_temp, int eos_id,
-           unsigned long long seed, void* stream) {
+           unsigned long long seed, int row_base, void* stream) {
   if (rows <= 0 || vocab <= 0) return (int)cudaErrorInvalidValue;
   const int c = choose_cluster(rows, vocab);
   if (c == 0) return (int)cudaErrorInvalidValue;
@@ -718,7 +720,7 @@ int launch(const float* logits, const float* top_k, const float* top_p, const in
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, sampler_kernel, logits, top_k, top_p, appears, suppress, noise,
                            next_out, alt_out, alt_prob_out, eos_lp_out, filtered_out, vocab,
-                           flags, iters, penalty, inv_temp, eos_id, seed);
+                           flags, iters, penalty, inv_temp, eos_id, seed, row_base);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -745,19 +747,23 @@ extern "C" int clipcap_sampler_cluster(int rows, int vocab) {
 
 // logits [rows, vocab] f32; top_k, top_p, suppress [rows] f32; appears
 // [rows, vocab] int8; noise [rows, vocab] f32; outputs [rows]. Pointers a
-// flag does not use may be null. Returns the cudaError_t of the launch.
+// flag does not use may be null. Row i draws Philox's counter row
+// row_base + i (a data-parallel shard's rows of a global batch). Returns
+// the cudaError_t of the launch.
 extern "C" int clipcap_fused_sampler(const void* logits, const void* top_k, const void* top_p,
                                      const void* appears, const void* suppress,
                                      const void* noise, void* next_out, void* alt_out,
                                      void* alt_prob_out, void* eos_lp_out, int rows, int vocab,
                                      int flags, int iters, float penalty, float inv_temp,
-                                     int eos_id, unsigned long long seed, void* stream) {
+                                     int eos_id, unsigned long long seed, int row_base,
+                                     void* stream) {
   return launch(static_cast<const float*>(logits), static_cast<const float*>(top_k),
                 static_cast<const float*>(top_p), static_cast<const int8_t*>(appears),
                 static_cast<const float*>(suppress), static_cast<const float*>(noise),
                 static_cast<int*>(next_out), static_cast<int*>(alt_out),
                 static_cast<float*>(alt_prob_out), static_cast<float*>(eos_lp_out), nullptr,
-                rows, vocab, flags & ~FILTER, iters, penalty, inv_temp, eos_id, seed, stream);
+                rows, vocab, flags & ~FILTER, iters, penalty, inv_temp, eos_id, seed, row_base,
+                stream);
 }
 
 // fused_filter: logits [rows, vocab] f32, top_k, top_p [rows] f32 ->
@@ -769,5 +775,5 @@ extern "C" int clipcap_fused_filter(const void* logits, const void* top_k, const
   return launch(static_cast<const float*>(logits), static_cast<const float*>(top_k),
                 static_cast<const float*>(top_p), nullptr, nullptr, nullptr, nullptr, nullptr,
                 nullptr, nullptr, static_cast<float*>(filtered_out), rows, vocab,
-                (flags & (TOPK | TOPP)) | FILTER, iters, 1.f, 1.f, -1, 0ull, stream);
+                (flags & (TOPK | TOPP)) | FILTER, iters, 1.f, 1.f, -1, 0ull, 0, stream);
 }

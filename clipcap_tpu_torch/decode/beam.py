@@ -95,6 +95,7 @@ def beam_search_batched(
     temperature: float = 1.0,
     stop_token_id: Optional[int] = None,
     device="cuda",
+    cache_constraint=None,  # cache -> cache (multi-card hook, see engine.generate)
 ) -> dict:
     """Beam search over N images in one loop: returns {tokens [N, beam, n]
     int32, seq_lengths [N, beam] int32, scores [N, beam]}, where scores are
@@ -103,8 +104,14 @@ def beam_search_batched(
     stays within each image's beams. Runs on `device`, the card unless
     asked for the CPU; the LM and the prompt must lie there.
 
+    `cache_constraint` is applied once to the fresh image cache. Under
+    data parallelism each rank searches its images [lo, hi) and the result
+    is all-gathered over `data`, as engine.generate does.
+
     The JAX loop decodes once more after the last step and drops the
     logits; this one skips that decode, which changes no output."""
+    from ..parallel.dp import layout_of
+
     dev = torch.device(device)
     if prompt_embeds.device.type != dev.type:
         raise ValueError(f"prompt on {prompt_embeds.device}, beam search asked for {dev}")
@@ -115,6 +122,12 @@ def beam_search_batched(
 
     token_mode = bool(getattr(lm, "takes_token_ids", False))
     cache = lm.init_cache(n_img, p_len + n, dtype=None if token_mode else prompt_embeds.dtype)
+    if cache_constraint is not None:
+        cache = cache_constraint(cache)
+    dp = layout_of(cache_constraint)
+    if dp is not None:
+        lo, hi = dp.rows(n_img)
+        prompt_embeds, n_img = prompt_embeds[lo:hi], hi - lo
     logits, cache = lm.prefill(prompt_embeds, cache)
     logp = torch.log_softmax(logits[:, -1].float() / temp, dim=-1)  # [N, V]
     vocab = logp.shape[-1]
@@ -172,14 +185,15 @@ def beam_search_batched(
         if step + 1 < n:  # the last step's logits would go unused
             logits, cache = decode_fn(step_input(next_tok.reshape(-1)), cache)
 
-    return {"tokens": tokens.to(torch.int32),
-            "seq_lengths": seq_lengths.to(torch.int32),
-            "scores": scores / seq_lengths}  # final normalisation (reference :139)
+    out = {"tokens": tokens.to(torch.int32),
+           "seq_lengths": seq_lengths.to(torch.int32),
+           "scores": scores / seq_lengths}  # final normalisation (reference :139)
+    return out if dp is None else {k: dp.gather(v) for k, v in out.items()}
 
 
 def beam_search(lm, prompt_embeds: torch.Tensor, beam_size: int = 5, max_new_tokens: int = 67,
                 temperature: float = 1.0, stop_token_id: Optional[int] = None,
-                device="cuda") -> dict:
+                device="cuda", cache_constraint=None) -> dict:
     """Single-image beam search (the reference generate_beam contract):
     prompt_embeds [1, P, D] -> {tokens [beam, n], seq_lengths [beam],
     scores [beam]}; beam_search_batched at N = 1."""
@@ -188,7 +202,8 @@ def beam_search(lm, prompt_embeds: torch.Tensor, beam_size: int = 5, max_new_tok
                          "beam_search_batched for N images")
     out = beam_search_batched(lm, prompt_embeds, beam_size=beam_size,
                               max_new_tokens=max_new_tokens, temperature=temperature,
-                              stop_token_id=stop_token_id, device=device)
+                              stop_token_id=stop_token_id, device=device,
+                              cache_constraint=cache_constraint)
     return {k: v[0] for k, v in out.items()}
 
 

@@ -83,20 +83,47 @@ class StepRandomness:
     generator (from a CPU generator: no device sync), and the threshold
     path draws its Gumbel noise from `generator` on the loop's device.
     generate and the serving chunk both draw through this, so a serve with
-    no refill consumes the same stream as generate with the same seed."""
+    no refill consumes the same stream as generate with the same seed.
 
-    def __init__(self, seed: int, device):
+    A data-parallel rank that runs rows [row_base, row_base + B) of a
+    global batch of `global_rows` draws what the whole batch would: the
+    kernels key Philox by the global row (row_base + row), and `gumbel`
+    draws the global [global_rows, V] noise and keeps this rank's rows. So
+    a sampled decode does not depend on the number of ranks."""
+
+    def __init__(self, seed: int, device, row_base: int = 0,
+                 global_rows: Optional[int] = None):
         self.generator = torch.Generator(device=device).manual_seed(int(seed))
         self._seeds = torch.Generator().manual_seed(int(seed))
+        self.row_base = int(row_base)
+        self.global_rows = global_rows
 
     def step_seed(self) -> int:
         return int(torch.randint(0, 2**62, (1,), generator=self._seeds))
+
+    def gumbel(self, logits: torch.Tensor) -> torch.Tensor:
+        """The threshold path's Gumbel noise for logits [B, V]: the rows of
+        a draw over the global batch."""
+        if self.global_rows is None:
+            return S.gumbel_like(logits, self.generator)
+        b, v = logits.shape
+        full = S.gumbel_like(logits.new_empty((self.global_rows, v)), self.generator)
+        return full[self.row_base: self.row_base + b]
 
 
 def _check_filter_method(settings: GenerationSettings) -> None:
     if settings.filter_method not in ("fused", "fused_step", "threshold", "sort"):
         raise ValueError(f"unknown filter_method {settings.filter_method!r} (expected "
                          "'fused', 'fused_step', 'threshold' or 'sort')")
+
+
+def uses_fused_filter(settings: GenerationSettings, logits: torch.Tensor) -> bool:
+    """Whether filter_and_sample launches K2: "fused" on CUDA for a sampled
+    step with no typical filter and no sentence-length penalty."""
+    return (settings.filter_method == "fused" and not settings.greedy
+            and not S.is_active(settings.typ_p)
+            and not (settings.desired_sentence_length > 0 and settings.stop_token_id is not None)
+            and logits.is_cuda)
 
 
 def filter_and_sample(
@@ -110,6 +137,7 @@ def filter_and_sample(
     seed: int = 0,
     generator: Optional[torch.Generator] = None,
     gumbel_noise: Optional[torch.Tensor] = None,  # [B, V]
+    row_base: int = 0,  # K2's Philox row of logits' row 0 (a data-parallel shard's first row)
 ):
     """Temperature -> filters -> sample: one step's logits pipeline.
     Returns (next_token, alt_token, alt_prob), each [B]."""
@@ -122,12 +150,10 @@ def filter_and_sample(
     typp_active = S.is_active(settings.typ_p)
     slp_active = settings.desired_sentence_length > 0 and settings.stop_token_id is not None
     want_alt = (not settings.greedy) and settings.min_alternate_prob > 0
-    use_fused = (settings.filter_method == "fused" and not settings.greedy
-                 and not typp_active and not slp_active and logits.is_cuda)
-    if use_fused:
+    if uses_fused_filter(settings, logits):
         return fused_filter_sample(logits, top_k, top_p, seed, do_topk=topk_active,
                                    do_topp=topp_active, want_alt_prob=want_alt,
-                                   gumbel_noise=gumbel_noise)
+                                   gumbel_noise=gumbel_noise, row_base=row_base)
 
     by_sort = settings.filter_method == "sort"
     if topk_active or topp_active:
@@ -194,6 +220,9 @@ def sample_step(
     alt_prob [B], raw eos logprob [B] or None)."""
     eos = settings.eos_token_id
     step_seed = rand.step_seed()
+    if (gumbel_noise is None and rand.global_rows is not None and not settings.greedy
+            and not use_fused_step and not uses_fused_filter(settings, logits)):
+        gumbel_noise = rand.gumbel(logits)  # the threshold path's global rows
     if use_fused_step:
         pen = settings.repetition_penalty
         pen = 1.0 if pen in (None, 0.0) else float(pen)
@@ -207,7 +236,7 @@ def sample_step(
             want_eos_lp=eos is not None, do_topk=S.is_active(settings.top_k),
             do_topp=S.is_active(settings.top_p),
             want_alt_prob=(not settings.greedy) and settings.min_alternate_prob > 0,
-            gumbel_noise=gumbel_noise)
+            gumbel_noise=gumbel_noise, row_base=rand.row_base)
     else:
         raw_eos_lp = None
         if eos is not None:
@@ -221,7 +250,7 @@ def sample_step(
                                           tokens_valid=hist_valid)
         next_token, alt_token, alt_prob = filter_and_sample(
             settings, logits, top_k, top_p, typ_p, step, seed=step_seed,
-            generator=rand.generator, gumbel_noise=gumbel_noise)
+            generator=rand.generator, gumbel_noise=gumbel_noise, row_base=rand.row_base)
     return next_token.to(torch.int64), alt_token.to(torch.int64), alt_prob, raw_eos_lp
 
 
@@ -269,6 +298,7 @@ def generate(
     gumbel_noise: Optional[torch.Tensor] = None,  # [N, B, V] per-step draws
     prompt_tokens: Optional[torch.Tensor] = None,  # [B, Tp] fed to rep-penalty
     device="cuda",
+    cache_constraint=None,  # cache -> cache; e.g. dp.DPDecodeShardings.constrain_cache
 ) -> dict:
     """Generate settings.max_new_tokens tokens after prompt_embeds, on
     `device` (the card unless asked for the CPU; the LM and the prompt
@@ -283,7 +313,16 @@ def generate(
     Returns a dict with tokens [B, N] int32 (pad_token_id after a row
     stops), lengths [B] (generated tokens incl. the stopping token),
     stopped [B] bool and, iff eos_token_id is set, eos_logprob [B, N]
-    (raw log P(eos) per step)."""
+    (raw log P(eos) per step).
+
+    `cache_constraint` is the multi-card hook: applied once to the fresh
+    cache, as in JAX. Under data parallelism (a dp.DPDecodeShardings'
+    constrain_cache) every rank is given the whole batch, decodes its rows
+    [lo, hi) of it (its cache keeps those rows, its sampler draws global
+    rows lo.. of the randomness) and all-gathers the result over `data`,
+    so each rank returns what one process would."""
+    from ..parallel.dp import layout_of
+
     _check_filter_method(settings)
     dev = torch.device(device)
     if prompt_embeds.device.type != dev.type:
@@ -301,6 +340,21 @@ def generate(
     if gumbel_noise is not None:
         gumbel_noise = gumbel_noise.to(device=dev, dtype=torch.float32)
 
+    dp = layout_of(cache_constraint)
+    b_global = b
+    if dp is not None:
+        lo, hi = dp.rows(b)
+        prompt_embeds, top_k, top_p, typ_p, min_len, max_len = (
+            x[lo:hi] for x in (prompt_embeds, top_k, top_p, typ_p, min_len, max_len))
+        if prompt_tokens is not None:
+            prompt_tokens = prompt_tokens[lo:hi]
+        if gumbel_noise is not None:
+            gumbel_noise = gumbel_noise[:, lo:hi]
+        b = hi - lo
+        rand = StepRandomness(seed, dev, row_base=lo, global_rows=b_global)
+    else:
+        rand = StepRandomness(seed, dev)
+
     n_prompt_tok = 0 if prompt_tokens is None else prompt_tokens.shape[1]
     hist = torch.zeros((b, n_prompt_tok + n), dtype=torch.int64, device=dev)
     hist_valid = torch.zeros((b, n_prompt_tok + n), dtype=torch.bool, device=dev)
@@ -308,10 +362,10 @@ def generate(
         hist[:, :n_prompt_tok] = prompt_tokens.to(dev)
         hist_valid[:, :n_prompt_tok] = True
 
-    rand = StepRandomness(seed, dev)
-
     token_mode = bool(getattr(lm, "takes_token_ids", False))
-    cache = lm.init_cache(b, p_len + n, dtype=None if token_mode else prompt_embeds.dtype)
+    cache = lm.init_cache(b_global, p_len + n, dtype=None if token_mode else prompt_embeds.dtype)
+    if cache_constraint is not None:
+        cache = cache_constraint(cache)
     prefill_logits, cache = lm.prefill(prompt_embeds, cache)
     last_logits = prefill_logits[:, -1].float()
 
@@ -352,6 +406,8 @@ def generate(
     }
     if eos is not None:
         result["eos_logprob"] = torch.stack(eos_steps, dim=1)
+    if dp is not None:
+        result = {k: dp.gather(v) for k, v in result.items()}
     return result
 
 

@@ -45,6 +45,17 @@ takes token ids (`takes_token_ids`): each step feeds the emitted ids, a
 request's prefix is its image features [Tv, W], whose prefill makes its
 cross-attention K/V, and a fixed decoder prompt occupies the ring. Pass
 prefix_len = image tokens and prompt_len = prompt ids.
+
+Data parallelism (`cache_constraint` = a dp.DPDecodeShardings'
+constrain_cache), as JAX's one global scheduler over sharded slots: the
+host scheduler (admission, the refill ladder, retirement, the pending
+map) runs on every rank alike, over all `slots`. Each rank holds the ring
+cache and the device state of its slot range [r*S/n, (r+1)*S/n), samples
+its rows as global rows r*S/n.. of the randomness, and runs the part of
+each refill block that falls in its range. Each chunk's outputs are
+all-gathered over `data` before the harvest, so every rank reads every
+slot and makes the same decisions: the result is the one-process serve's,
+request for request.
 """
 
 from __future__ import annotations
@@ -119,6 +130,7 @@ class ServingEngine:
         max_request_length: Optional[int] = None,
         chunk_sizes=None,
         device="cuda",
+        cache_constraint=None,  # cache -> cache, applied once to the fresh ring cache
     ):
         if not hasattr(lm, "decode_step_ring") or not hasattr(lm, "scatter_refill"):
             raise TypeError(f"LM module {lm!r} does not support ring decode "
@@ -198,7 +210,13 @@ class ServingEngine:
         self.min_refill = int(min_refill) if min_refill is not None else max(
             1, min(self._refill_sizes[-1] // 4, self.slots))
 
-        b, dev = self.slots, self.device
+        from ..parallel.dp import layout_of
+
+        self.cache_constraint = cache_constraint
+        self._dp = layout_of(cache_constraint)
+        # this rank's slot range (all slots without data parallelism)
+        self._lo, self._hi = (0, self.slots) if self._dp is None else self._dp.rows(self.slots)
+        b, dev = self._hi - self._lo, self.device
         self._top_k = S.per_row(settings.top_k, b, dev)
         self._top_p = S.per_row(settings.top_p, b, dev)
         self._typ_p = S.per_row(settings.typ_p, b, dev)
@@ -224,9 +242,17 @@ class ServingEngine:
 
     def _init(self, prefixes: torch.Tensor, live: torch.Tensor, max_len: torch.Tensor,
               seed: int) -> ServingState:
-        """Prefill the first B requests into a fresh ring cache."""
-        b, n, dev = self.slots, self.settings.max_new_tokens, self.device
-        cache = self.lm.init_cache(b, self.ring_len, dtype=self.dtype)
+        """Prefill the first B requests (all slots' rows; this rank keeps
+        its range) into a fresh ring cache."""
+        n, dev = self.settings.max_new_tokens, self.device
+        cache = self.lm.init_cache(self.slots, self.ring_len, dtype=self.dtype)
+        if self.cache_constraint is not None:
+            cache = self.cache_constraint(cache)
+        lo, hi = self._lo, self._hi
+        prefixes, live, max_len = prefixes[lo:hi], live[lo:hi], max_len[lo:hi]
+        b = hi - lo
+        rand = (StepRandomness(seed, dev) if self._dp is None
+                else StepRandomness(seed, dev, row_base=lo, global_rows=self.slots))
         logits, cache = self.lm.prefill(prefixes, cache)
 
         def zeros(*shape, dtype=torch.int64):  # one tensor each: refills write in place
@@ -238,13 +264,15 @@ class ServingEngine:
             gen_count=zeros(b), age=zeros(b), hist=zeros(b, n),
             hist_valid=zeros(b, n, dtype=torch.bool), stopped=~live,
             nat_stopped=zeros(b, dtype=torch.bool), stops=zeros(b), live=live,
-            max_len=max_len, rand=StepRandomness(seed, dev))
+            max_len=max_len, rand=rand)
 
     @torch.no_grad()
     def _chunk(self, st: ServingState, n_steps: int) -> torch.Tensor:
         """n_steps decode steps with generate's semantics per slot, updating
-        `st`. Returns [n_steps + 2, B] int32: each step's emitted token (-1
-        where nothing was emitted), then stopped and nat_stopped."""
+        `st`. Returns [n_steps + 2, B] int32 over all slots (this rank's,
+        all-gathered over `data` under data parallelism): each step's
+        emitted token (-1 where nothing was emitted), then stopped and
+        nat_stopped."""
         settings = self.settings
         n = settings.max_new_tokens
         out = []
@@ -279,18 +307,25 @@ class ServingEngine:
                 max=self._pos_limit - 1)
             out.append(torch.where(emit_valid, emitted, -1))
         out += [st.stopped.long(), st.nat_stopped.long()]
-        return torch.stack(out).to(torch.int32)
+        packed = torch.stack(out).to(torch.int32)
+        return packed if self._dp is None else self._dp.gather(packed, axis=1)
 
     @torch.no_grad()
     def _refill(self, r: int, st: ServingState, prefixes: torch.Tensor, q: int,
                 new_max_len: torch.Tensor, n_real: int) -> None:
         """Prefill r new requests into the CONTIGUOUS slot block [q, q+r).
         The first n_real rows are requests; the rest are padding that lands
-        dead (live False, stopped True) and emits nothing."""
+        dead (live False, stopped True) and emits nothing. A rank runs the
+        part of the block in its slot range, if any."""
+        a, z = max(q, self._lo), min(q + r, self._hi)
+        if a >= z:
+            return
+        real = torch.arange(r, device=self.device) < n_real
+        prefixes, new_max_len, real = (x[a - q: z - q] for x in (prefixes, new_max_len, real))
+        q, r = a - self._lo, z - a
         small = self.lm.init_cache(r, self.prompt_len, dtype=self.dtype)
         logits, small = self.lm.prefill(prefixes, small)
         st.cache = self.lm.scatter_refill(st.cache, small, q)
-        real = torch.arange(r, device=self.device) < n_real
         block = slice(q, q + r)
         for vec in (st.gen_count, st.age, st.hist, st.hist_valid, st.nat_stopped, st.stops):
             vec[block] = 0

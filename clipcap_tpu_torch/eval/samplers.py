@@ -91,7 +91,8 @@ class NoBeamCaptionSampler(CaptionSamplerBase):
                 vocab_prefilter=self.vocab_prefilter,
             )
             return generate(bundle.lm_decode, prompt, settings, seed=self.seed,
-                            device=self.device)
+                            device=self.device,
+                            cache_constraint=getattr(bundle, "cache_constraint", None))
 
     def generate_captions(self, bundle, prefix, image_embedding=None, image=None) -> List[str]:
         out = self._generate(bundle, prefix, prefix.shape[0])
@@ -189,7 +190,8 @@ class BeamCaptionSampler(CaptionSamplerBase):
         return dict(beam_size=self.beam_size, max_new_tokens=self.max_decode_length,
                     temperature=self.temperature,
                     stop_token_id=bundle.tokenizer.encode_text(self.stop_token)[0],
-                    device=self.device)
+                    device=self.device,
+                    cache_constraint=getattr(bundle, "cache_constraint", None))
 
     def generate_captions(self, bundle, prefix, image_embedding=None, image=None) -> List[str]:
         out = beam_search(bundle.lm_decode, prefix, **self._kw(bundle))

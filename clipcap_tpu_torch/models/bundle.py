@@ -1,6 +1,7 @@
 """CaptionerBundle: the runtime handle tying model, configs and tokenizer
 (port of clipcap_tpu/models/bundle.py: encode_image, project_prefix,
-prefix_from_pixels, embed_text, forward, enable_int8_decode, lm_decode,
+prefix_from_pixels, embed_text, forward, enable_tensor_parallel,
+enable_data_parallel_decode, enable_int8_decode, lm_decode,
 make_serving_engine).
 
 The JAX bundle's params dict becomes a `Captioner` module. The bundle
@@ -9,7 +10,14 @@ there. Each submodule computes in its own dtype: pixels and features are
 cast to the encoder's and the mapper's (a bf16 checkpoint computes in
 bf16 from the pixels on; JAX promotes f32 pixels against bf16 weights to
 f32 instead, so there the encoder and the mapper of a bf16 checkpoint run
-in f32). Multi-chip hooks come with a later slice.
+in f32).
+
+Multi-card decode runs one process per card (torchrun), each holding a
+bundle: `enable_data_parallel_decode()` splits every decode batch over the
+`data` axis, `enable_tensor_parallel(M)` shards GPT-J's heads over `model`.
+Both install `cache_constraint`, which the samplers, beam search and
+serving hand to the decode loops, and `tp_mesh`; every rank gets the whole
+batch and returns the whole result (parallel/dp.py, parallel/tp.py).
 
 `enable_int8_decode()` quantizes the LM once and switches only the decode
 surface, `lm_decode`, which the samplers, beam search, serving and the
@@ -38,6 +46,12 @@ class CaptionerBundle:
     vit_cfg: Optional[ViTConfig] = None  # config of model.visual if present
     device: str = "cuda"
     _int8_lm: Any = dataclasses.field(default=None, init=False, repr=False)
+    # multi-card decode hooks (set by enable_tensor_parallel /
+    # enable_data_parallel_decode)
+    cache_constraint: Any = dataclasses.field(default=None, init=False, repr=False)
+    tp_mesh: Any = dataclasses.field(default=None, init=False, repr=False)
+    _decode_sharding: Optional[str] = dataclasses.field(default=None, init=False,
+                                                        repr=False)  # None | "tp" | "dp"
 
     def __post_init__(self):
         where = {p.device.type for p in self.model.parameters()}
@@ -58,6 +72,62 @@ class CaptionerBundle:
     def lm(self):
         return self.model.lm
 
+    # --- multi-card -----------------------------------------------------------------
+
+    def _mesh(self, data: int, model: int):
+        from ..core.mesh import MeshSpec, make_mesh
+
+        return make_mesh(MeshSpec(data=data, model=model),
+                         device_type=torch.device(self.device).type)
+
+    def enable_tensor_parallel(self, model_parallel: int, data_parallel: Optional[int] = None):
+        """Shard the LM for tensor-parallel KV-cached decode: a (data, model)
+        mesh over the world (data = world // model_parallel unless given),
+        GPT-J's heads and MLP width split over `model` (parallel/tp.py), and
+        the cache_constraint hook that keeps each decode batch's rows on
+        their data rank. Returns the mesh."""
+        from ..core.mesh import init_distributed
+        from ..lm.registry import normalize_lm_type
+        from ..parallel.tp import gptj_decode_shardings
+
+        if normalize_lm_type(self.cap_cfg.lm_type) != "gptj":
+            raise ValueError("tensor-parallel decode is implemented for GPT-J (heads and MLP "
+                             "widths divide the model axis); GPT2-XL's 25 heads do not split "
+                             "— use data parallelism (see PARITY.md)")
+        if self._int8_lm is not None:
+            raise ValueError("int8 decode and tensor-parallel decode are mutually exclusive "
+                             "(the TP shardings describe the bf16 layout)")
+        if self._decode_sharding is not None:
+            raise ValueError(f"{self._decode_sharding} decode sharding already enabled")
+        _, world = init_distributed(self.device)
+        dp = data_parallel or max(1, world // model_parallel)
+        mesh = self._mesh(dp, model_parallel)
+        sh = gptj_decode_shardings(mesh, self.model.lm)
+        self.model.lm.shard_heads(sh.model_group)
+        self.cache_constraint = sh.constrain_cache
+        self.tp_mesh = mesh
+        self._decode_sharding = "tp"
+        return mesh
+
+    def enable_data_parallel_decode(self, data_parallel: Optional[int] = None):
+        """Shard decode over the batch axis: the weights on every rank, each
+        decode batch's rows and KV cache split over `data` (parallel/dp.py),
+        the multi-card scale-out for GPT-2 (whose 25 heads do not split
+        tensor-parallel). Composes with enable_int8_decode (the int8 caches'
+        scale slabs shard like k/v); excludes tensor-parallel decode.
+        Returns the mesh."""
+        from ..core.mesh import init_distributed
+        from ..parallel.dp import dp_decode_shardings
+
+        if self._decode_sharding is not None:
+            raise ValueError(f"{self._decode_sharding} decode sharding already enabled")
+        _, world = init_distributed(self.device)
+        mesh = self._mesh(data_parallel or world, 1)
+        self.cache_constraint = dp_decode_shardings(mesh).constrain_cache
+        self.tp_mesh = mesh
+        self._decode_sharding = "dp"
+        return mesh
+
     def enable_int8_decode(self) -> "CaptionerBundle":
         """Quantize the LM once for int8 decode (the family's quantize_params:
         models/gpt2, models/gptj or models/t5): int8 weights with
@@ -67,6 +137,9 @@ class CaptionerBundle:
         can differ from the float path at quantization boundaries."""
         from ..lm.registry import family
 
+        if self._decode_sharding == "tp":
+            raise ValueError("int8 decode and tensor-parallel decode are mutually exclusive "
+                             "(the TP shardings describe the bf16 layout)")
         self._int8_lm = family(self.cap_cfg.lm_type).quantize_params(self.model.lm)
         return self
 
@@ -88,6 +161,7 @@ class CaptionerBundle:
         lm = self.lm_decode
         kw.setdefault("dtype", (lm.wte if hasattr(lm, "wte") else lm.shared).dtype)
         kw.setdefault("device", self.device)
+        kw.setdefault("cache_constraint", self.cache_constraint)
         return ServingEngine(self.lm_decode, self.lm_cfg,
                              prefix_len=self.cap_cfg.mapper.prefix_length,
                              settings=settings, slots=slots, **kw)

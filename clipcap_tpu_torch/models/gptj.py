@@ -102,6 +102,8 @@ def _attend(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
 
 
 class GPTJBlock(nn.Module):
+    tp_group = None  # the model-axis group once tensor-parallel (see GPTJ.shard_heads)
+
     def __init__(self, cfg: GPTJConfig, gen, device, dtype):
         super().__init__()
         d = cfg.n_embd
@@ -117,15 +119,25 @@ class GPTJBlock(nn.Module):
 
     def qkv(self, h: torch.Tensor, sin, cos, per_row: bool = False):
         """q and k after rotary (f32 in a bf16 model), v in h's dtype."""
-        b, t, d = h.shape
-        shape = (b, t, self.n_head, d // self.n_head)
+        b, t, _ = h.shape
+        shape = (b, t, self.n_head, -1)
         q = apply_rotary(self.wq(h).reshape(shape), sin, cos, per_row)
         k = apply_rotary(self.wk(h).reshape(shape), sin, cos, per_row)
         return q, k, self.wv(h).reshape(shape)
 
     def finish(self, x: torch.Tensor, h: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-        """The parallel residual: x + attn_out + mlp_out, both off h."""
-        return x + self.wo(attn) + self.w_out(gelu_new(self.w_in(h)))
+        """The parallel residual: x + attn_out + mlp_out, both off h.
+        Tensor-parallel, each projection's partial sum over this rank's
+        heads (wo) or width (w_out) is all-reduced, JAX's two psums; b_out
+        rides rank 0's partial, so it enters the sum once and one rank
+        computes the unsharded block bit for bit."""
+        if self.tp_group is None:
+            return x + self.wo(attn) + self.w_out(gelu_new(self.w_in(h)))
+        from ..core.mesh import all_reduce
+
+        bias = self.w_out.bias if torch.distributed.get_rank(self.tp_group) == 0 else None
+        mlp = nn.functional.linear(gelu_new(self.w_in(h)), self.w_out.weight, bias)
+        return x + all_reduce(self.wo(attn), self.tp_group) + all_reduce(mlp, self.tp_group)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, sin: torch.Tensor,
                 cos: torch.Tensor) -> torch.Tensor:
@@ -137,11 +149,22 @@ class GPTJBlock(nn.Module):
 
 class GPTJ(nn.Module):
     """GPT-J with the JAX package's init: N(0, 0.02) weights (the embedding
-    and the lm_head too), zero biases, unit LayerNorms."""
+    and the lm_head too), zero biases, unit LayerNorms.
+
+    `tp_group`, a model-axis process group, makes it tensor-parallel
+    (shard_heads): rank r keeps heads [r*H/M, (r+1)*H/M) of wq/wk/wv and
+    their rows of wo (as [out, in]: wo's columns), w_in/b_in's rows r of M
+    and w_out's matching columns, and rows r of M of the lm_head (a
+    vocabulary slice). Two all-reduces a layer (GPTJBlock.finish), a KV
+    cache of the local heads, and the logits all-gathered over the group
+    before they leave `head`, so every rank samples the same token from the
+    same row. Without a group the code path is the one-card one."""
 
     chunked_forward = True  # forward_cached continues a cache by several positions
+    tp_group = None
 
-    def __init__(self, cfg: GPTJConfig, *, device="cuda", dtype=torch.float32, seed: int = 0):
+    def __init__(self, cfg: GPTJConfig, *, device="cuda", dtype=torch.float32, seed: int = 0,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
         gen = make_generator(seed, device)
@@ -150,6 +173,28 @@ class GPTJ(nn.Module):
         self.ln_f = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, device=device, dtype=dtype)
         self.lm_head = linear(cfg.n_embd, cfg.vocab_size, bias=True, gen=gen, device=device,
                               dtype=dtype, std=0.02)
+        if tp_group is not None:
+            self.shard_heads(tp_group)
+
+    def shard_heads(self, group) -> "GPTJ":
+        """Keep this rank's tensor-parallel shard of every weight, in place,
+        by the rules of parallel/tp.py (`_GPTJ_RULES`), and run
+        tensor-parallel over `group` from now on. Raises ValueError where
+        the heads, the MLP width or the vocabulary do not divide."""
+        from ..parallel.tp import local_shard, tp_axes
+
+        m = torch.distributed.get_world_size(group)
+        r = torch.distributed.get_rank(group)
+        axes = tp_axes(self)
+        with torch.no_grad():
+            for name, p in list(self.named_parameters()):
+                if axes[name] is not None:
+                    p.data = local_shard(p.data, axes[name], m, r, name)
+        for block in self.blocks:
+            block.n_head = self.cfg.n_head // m
+            block.tp_group = group
+        self.tp_group = group
+        return self
 
     # --- the lm/registry protocol -------------------------------------------------
 
@@ -160,7 +205,12 @@ class GPTJ(nn.Module):
         return self.wte.shape[1]
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lm_head(self.ln_f(x))
+        logits = self.lm_head(self.ln_f(x))
+        if self.tp_group is None:
+            return logits
+        from ..core.mesh import all_gather
+
+        return all_gather(logits, self.tp_group, dim=-1)
 
     def forward(
         self,
@@ -184,9 +234,10 @@ class GPTJ(nn.Module):
         return self.head(x)
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> KVCache:
-        """A fresh cache: zeros [L, batch, max_len, H, Dh], index 0."""
+        """A fresh cache: zeros [L, batch, max_len, H, Dh] (H this rank's
+        heads when tensor-parallel), index 0."""
         cfg = self.cfg
-        shape = (cfg.n_layer, batch, max_len, cfg.n_head, cfg.n_embd // cfg.n_head)
+        shape = (cfg.n_layer, batch, max_len, self.blocks[0].n_head, cfg.n_embd // cfg.n_head)
         kw = dict(dtype=dtype or self.wte.dtype, device=self.wte.device)
         return KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw), index=0)
 

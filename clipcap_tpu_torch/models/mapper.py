@@ -79,6 +79,14 @@ class Mapper(nn.Module):
         """prefix [B, dim_clip] (pooled) or [B, clip_length, dim_clip]
         (all features) -> [B, prefix_length, dim_embedding]; remat
         checkpoints each layer (JAX's transformer_apply(remat=True))."""
+        x, visual_len = self.sequence(prefix)
+        for layer in self.layers:
+            x = remat_call(layer, x) if remat else layer(x)
+        return x[:, visual_len:]
+
+    def sequence(self, prefix: torch.Tensor):
+        """The layers' input, [projected prefix ‖ prefix constants], and the
+        projected part's length."""
         cfg = self.cfg
         if cfg.use_all_features:
             if prefix.dim() != 3:
@@ -94,8 +102,5 @@ class Mapper(nn.Module):
             x = self.linear(prefix).reshape(prefix.shape[0], cfg.clip_length, cfg.dim_embedding)
             visual_len = cfg.clip_length
         const = self.prefix_const.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([x, const], dim=1)
-        for layer in self.layers:
-            x = remat_call(layer, x) if remat else layer(x)
-        return x[:, visual_len:]
+        return torch.cat([x, const], dim=1), visual_len
 

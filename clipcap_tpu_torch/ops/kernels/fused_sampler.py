@@ -28,7 +28,12 @@ Random numbers: with `gumbel_noise` given, both versions use it (tests feed
 the same draws to both). Otherwise the kernel draws from an in-kernel
 Philox-4x32-10 generator keyed by `seed` and the plain version from a
 `torch.Generator` seeded with `seed`: the same Gumbel distribution as
-jax.random and the TPU core PRNG, different draws.
+jax.random and the TPU core PRNG, different draws. `row_base` makes row i
+draw global row row_base + i's noise: the kernel keys Philox by it, and
+the plain version draws row_base + B rows and keeps the last B (on the
+CPU, where the generator fills a tensor in order, the rows of a draw over
+the whole batch). A data-parallel shard passes its first global row, so a
+sampled decode does not depend on the number of ranks; it is 0 elsewhere.
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ def _library():
         lib = _build.library("fused_sampler")
         lib.clipcap_fused_sampler.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint64, ctypes.c_int,
+               ctypes.c_void_p])
         lib.clipcap_fused_sampler.restype = ctypes.c_int
         lib.clipcap_fused_filter.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
@@ -139,6 +145,7 @@ def sampler_plain(
     eos_token_id: Optional[int] = None,
     suppress_eos: Optional[torch.Tensor] = None,
     want_eos_lp: bool = False,
+    row_base: int = 0,
 ):
     """The TPU `_sampler_kernel` step by step in PyTorch. Returns
     (next [B] int32, alt [B] int32, alt_prob [B] f32, eos_lp [B] f32 or None)."""
@@ -168,7 +175,7 @@ def sampler_plain(
 
     if gumbel_noise is None:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        gumbel_noise = S.gumbel_like(x, gen)
+        gumbel_noise = S.gumbel_like(x.new_empty((row_base + b, vocab)), gen)[row_base:]
     pert = x + gumbel_noise.float()
     iota = torch.arange(vocab, device=dev)
     i1, _ = S.first_index_of_max(pert)
@@ -184,7 +191,8 @@ def sampler_plain(
 
 
 def _launch(counter: str, logits, kk, pp, seed, *, flags, iters, appears=None,
-            suppress=None, noise=None, penalty=1.0, temperature=1.0, eos_token_id=None):
+            suppress=None, noise=None, penalty=1.0, temperature=1.0, eos_token_id=None,
+            row_base=0):
     b, vocab = logits.shape
     _build.check_cuda_tensor("logits", logits, (torch.float32,))
     _build.check_cuda_tensor("top_k", kk, (torch.float32,), (b,))
@@ -197,6 +205,8 @@ def _launch(counter: str, logits, kk, pp, seed, *, flags, iters, appears=None,
         _build.check_cuda_tensor("gumbel_noise", noise, (torch.float32,), (b, vocab))
     if eos_token_id is not None and not 0 <= eos_token_id < vocab:
         raise ValueError(f"eos_token_id {eos_token_id} outside the vocabulary")
+    if not 0 <= row_base < 2**31 - b:
+        raise ValueError(f"row_base {row_base} outside [0, 2^31 - rows)")
     _check_vocab(vocab)
     fn = _library().clipcap_fused_sampler
     dev = logits.device
@@ -213,7 +223,7 @@ def _launch(counter: str, logits, kk, pp, seed, *, flags, iters, appears=None,
                 ptr(nxt), ptr(alt), ptr(alt_prob), ptr(eos_lp), b, vocab, flags, iters,
                 float(penalty), 1.0 / float(temperature),
                 -1 if eos_token_id is None else int(eos_token_id),
-                int(seed) & 0xFFFFFFFFFFFFFFFF, _build.stream_handle(dev))
+                int(seed) & 0xFFFFFFFFFFFFFFFF, int(row_base), _build.stream_handle(dev))
     _build.raise_on_error(counter, rc)
     LAUNCHES[counter] += 1
     return nxt, alt, alt_prob, eos_lp
@@ -242,6 +252,7 @@ def fused_filter_sample(
     want_alt_prob: bool = True,
     gumbel_noise: Optional[torch.Tensor] = None,  # [B, V] injected noise
     iters: int = DEFAULT_ITERS,
+    row_base: int = 0,  # the global row of logits' row 0 (see the module doc)
 ):
     """Filter + sample one decode step (K2). Returns (next [B] int32,
     alt [B] int32, alt_prob [B] f32). do_topk/do_topp skip a filter whose
@@ -251,11 +262,11 @@ def fused_filter_sample(
     if logits.device.type == "cpu":
         return sampler_plain(logits, kk, pp, seed, do_topk=do_topk, do_topp=do_topp,
                              want_alt_prob=want_alt_prob, gumbel_noise=noise,
-                             iters=iters)[:3]
+                             iters=iters, row_base=row_base)[:3]
     flags = ((_TOPK if do_topk else 0) | (_TOPP if do_topp else 0)
              | (_ALT_PROB if want_alt_prob else 0) | (_NOISE if noise is not None else 0))
     return _launch("fused_filter_sample", logits.float().contiguous(), kk, pp, seed,
-                   flags=flags, iters=iters, noise=noise)[:3]
+                   flags=flags, iters=iters, noise=noise, row_base=row_base)[:3]
 
 
 def fused_step_sample(
@@ -275,6 +286,7 @@ def fused_step_sample(
     want_alt_prob: bool = True,
     gumbel_noise: Optional[torch.Tensor] = None,
     iters: int = DEFAULT_ITERS,
+    row_base: int = 0,
 ):
     """K2 preceded by the engine's pre-filter pipeline (K3): raw eos
     logprob, min-length eos suppression, CTRL repetition penalty from the
@@ -300,7 +312,7 @@ def fused_step_sample(
                              want_alt_prob=want_alt_prob, gumbel_noise=noise, iters=iters,
                              appears=appears, penalty=penalty, temperature=temperature,
                              eos_token_id=eos_token_id, suppress_eos=suppress,
-                             want_eos_lp=want_eos_lp)
+                             want_eos_lp=want_eos_lp, row_base=row_base)
     flags = ((_TOPK if do_topk else 0) | (_TOPP if do_topp else 0)
              | (_ALT_PROB if want_alt_prob else 0) | (_NOISE if noise is not None else 0)
              | (_PENALTY if appears is not None else 0)
@@ -309,7 +321,8 @@ def fused_step_sample(
              | (_TEMPERATURE if temperature != 1.0 else 0))
     return _launch("fused_step_sample", logits.float().contiguous(), kk, pp, seed,
                    flags=flags, iters=iters, appears=appears, suppress=suppress, noise=noise,
-                   penalty=penalty, temperature=temperature, eos_token_id=eos_token_id)
+                   penalty=penalty, temperature=temperature, eos_token_id=eos_token_id,
+                   row_base=row_base)
 
 
 def fused_filter_plain(

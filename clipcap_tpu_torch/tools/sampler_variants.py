@@ -97,7 +97,7 @@ VARIANTS = {
     "no_atomics": [(_ADD, "if (wt != 0ull) H[bk.of(x)] += wt;")],
     "u32_atomics": [(_ADD, "if (wt != 0ull) atomicAdd(reinterpret_cast<unsigned*>(&H[bk.of(x)]), "
                            "(unsigned)wt);")],
-    "no_philox": [("gumbel(philox(gj, row, k0, k1))", "0.f")],
+    "no_philox": [("gumbel(philox(gj, row_base + row, k0, k1))", "0.f")],
     "vbins_2048": [("constexpr int VBINS = 1024;", "constexpr int VBINS = 2048;")],
     "no_select": [("    if (isfinite(hi0))\n      v_p = select_cutoff",
                    "    if (false)\n      v_p = select_cutoff")],

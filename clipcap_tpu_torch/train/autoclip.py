@@ -17,7 +17,7 @@ valid prefix does.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,11 +66,13 @@ def _scaled(grads: Sequence[torch.Tensor], scale: torch.Tensor) -> List[torch.Te
 
 
 def autoclip_update(state: AutoClipState, grads: Sequence[torch.Tensor],
-                    percentile: float) -> Tuple[List[torch.Tensor], AutoClipState, dict]:
+                    percentile: float, norm: Optional[torch.Tensor] = None
+                    ) -> Tuple[List[torch.Tensor], AutoClipState, dict]:
     """Record the norm, clip grads to the percentile. Returns
     (clipped_grads, new_state, {pre/post norms, clip value}), all on the
-    device."""
-    norm = global_norm(grads)
+    device. `norm` is the global norm where `grads` are shards of the
+    gradient (ZeRO); by default it is global_norm(grads)."""
+    norm = global_norm(grads) if norm is None else norm
     finite = torch.isfinite(norm)
     max_h = state.history.shape[0]
 
@@ -94,10 +96,11 @@ def autoclip_update(state: AutoClipState, grads: Sequence[torch.Tensor],
     return _scaled(grads, scale), new_state, metrics
 
 
-def fixed_clip(grads: Sequence[torch.Tensor], clip_value: float
-               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Standard global-norm clipping for gradient_clip_val >= 0."""
-    norm = global_norm(grads)
+def fixed_clip(grads: Sequence[torch.Tensor], clip_value: float,
+               norm: Optional[torch.Tensor] = None) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Standard global-norm clipping for gradient_clip_val >= 0 (`norm` as
+    autoclip_update's)."""
+    norm = global_norm(grads) if norm is None else norm
     one = torch.ones((), dtype=norm.dtype, device=norm.device)
     scale = torch.where(norm > clip_value, clip_value / (norm + 1e-6), one)
     return _scaled(grads, scale), norm

@@ -32,6 +32,10 @@ as such and `convert.load` turns them into torch.bfloat16 bit for bit.
 `save_checkpoint` writes a bf16 parameter as the same records (numpy
 writes their header as `|V2` where ml_dtypes writes `<V2`; both load as
 `|V2`), so a bf16 checkpoint round-trips bit for bit both ways.
+
+In a multi-process run every rank calls the writer (a ZeRO state's moments
+are all-gathered first, a collective), and global rank 0 alone writes: a
+ZeRO run's file is a plain run's, and resumes with or without ZeRO.
 """
 
 from __future__ import annotations
@@ -131,17 +135,27 @@ def save_checkpoint(path: str, state, cap_cfg, lm_cfg, train_cfg: Optional[Any] 
     records `consolidate` writes; a model whose submodules differ in dtype
     (an f32 mapper beside a bf16 LM) is written so, leaf by leaf, as JAX
     writes a mixed pytree."""
+    from ..core.mesh import is_writer
+
+    model = getattr(state, "model", state)
+    shards = getattr(state, "shards", None)
+    moments = None
+    if model is not state:
+        moments = {"mu": state.opt_state.mu, "nu": state.opt_state.nu}
+        if shards is not None:  # every rank joins the gathers
+            moments = {k: shards.gather(v) for k, v in moments.items()}
+    if not is_writer():
+        return
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    model = getattr(state, "model", state)
     flat: dict = {}
     _flatten("", {"params": convert.captioner_params(model)}, flat)
     if model is not state:
         names = [n for n, keep in model.trainable_filter().items() if keep]
         flat["step"] = convert.to_numpy(state.step)
         flat["opt_state.count"] = convert.to_numpy(state.opt_state.count)
-        for key, moments in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
-            for name, m in zip(names, moments):
+        for key, ms in moments.items():
+            for name, m in zip(names, ms):
                 flat[f"opt_state.{key}.{name}"] = convert.to_numpy(m)
         for key in ("history", "count", "pos"):
             flat[f"autoclip.{key}"] = convert.to_numpy(getattr(state.autoclip, key))
@@ -175,10 +189,14 @@ def restore_checkpoint(path: str, template):
     if missing:
         raise KeyError(f"{path} has no Adam moments for {missing[:3]}...: it was saved by a run "
                        f"that trained other parameters")
-    opt_state = template.opt_state._replace(
-        count=tensor("opt_state.count"),
-        mu=[tensor(f"opt_state.mu.{n}") for n in names],
-        nu=[tensor(f"opt_state.nu.{n}") for n in names])
+    mu = [tensor(f"opt_state.mu.{n}") for n in names]
+    nu = [tensor(f"opt_state.nu.{n}") for n in names]
+    shards = getattr(template, "shards", None)
+    if shards is not None:  # a ZeRO state keeps this rank's shards
+        params = dict(model.named_parameters())
+        mu, nu = shards.shard(mu), shards.shard(nu)
+        shards.masters = shards.shard([params[n].detach() for n in names])
+    opt_state = template.opt_state._replace(count=tensor("opt_state.count"), mu=mu, nu=nu)
     autoclip = type(template.autoclip)(*(tensor(f"autoclip.{k}")
                                          for k in ("history", "count", "pos")))
     return template._replace(opt_state=opt_state, autoclip=autoclip, step=tensor("step"))

@@ -5,9 +5,21 @@ Replaces the reference's Lightning training loop plumbing (model.py:187-216
 training_step + :151-161 configure_gradient_clipping + the Trainer's
 precision flags, train.py:275-289) with one function on the card. JAX
 compiles it whole; here it is eager torch ops that read nothing back to
-the host, so steps queue on the device without waiting. One card: the
-JAX step's mesh, sharding and donation have no counterpart yet
-(ROADMAP.md item 12).
+the host, so steps queue on the device without waiting (JAX's buffer
+donation has no counterpart: the step updates in place).
+
+Under a mesh (`mesh=`, one process per card) the step is JAX's pjit'ed
+step with explicit collectives:
+- data: each rank takes its rows of the global batch; its loss divides by
+  the global token count (all-reduced), and the ranks' gradients are
+  summed over `data`, so AutoClip's norm history sees the global gradient;
+- ZeRO (`state.shards`, parallel/sharding.ZeroShards): the gradients are
+  reduce-scattered, the global norm is an all-reduce of the shards'
+  squared norms, AdamW updates this rank's shard of the f32 masters and of
+  its moments, and the parameters are all-gathered for the next forward;
+- pipe (with the pipelined `lm_apply` of parallel/pp.py): each stage has
+  the gradients of its own chunk of `lm.blocks` only, summed over `pipe`;
+- model: the ranks are replicas.
 
 The compute policy is JAX's:
 - bf16_compute: frozen parameters are stored in bf16 outright; trainable
@@ -43,6 +55,7 @@ import torch
 from torch import nn
 
 from ..core.config import CaptionerConfig, TrainConfig
+from ..core.mesh import all_reduce_
 from ..models.captioner import Captioner
 from .autoclip import AutoClipState, autoclip_init, autoclip_update, fixed_clip
 from .optim import AdamW, AdamWState, make_optimizer
@@ -53,14 +66,18 @@ class TrainState(NamedTuple):
     opt_state: AdamWState
     autoclip: AutoClipState
     step: torch.Tensor  # scalar int32 on the model's device
+    shards: Any = None  # ZeRO: parallel/sharding.ZeroShards (the masters' shards)
 
 
 def create_train_state(seed: int, cap_cfg: CaptionerConfig, lm_cfg: Any,
                        train_cfg: TrainConfig, model: Optional[Captioner] = None, *,
-                       vit_cfg=None, device: str = "cuda") -> Tuple[TrainState, AdamW]:
+                       vit_cfg=None, device: str = "cuda", mesh=None,
+                       zero: bool = False) -> Tuple[TrainState, AdamW]:
     """A fresh train state around `model` (or a Captioner drawn from
     `seed` on `device`), and its optimizer. With bf16_compute the frozen
-    floating parameters are cast to bf16 in place, as JAX stores them."""
+    floating parameters are cast to bf16 in place, as JAX stores them.
+    `zero` (with a mesh) keeps this data rank's ZeRO shards of the
+    trainable masters and makes the moments of those shards."""
     if model is None:
         model = Captioner(cap_cfg, lm_cfg, vit_cfg=vit_cfg, device=device, seed=seed)
     mask = model.trainable_filter()
@@ -83,9 +100,17 @@ def create_train_state(seed: int, cap_cfg: CaptionerConfig, lm_cfg: Any,
                         weight_decay=train_cfg.weight_decay, trainable_mask=mask)
     params = dict(model.named_parameters())
     dev = next(model.parameters()).device
-    state = TrainState(model=model, opt_state=tx.init([params[n] for n in tx.names]),
+    shards = None
+    if zero:
+        from ..parallel.sharding import ZeroShards
+
+        if mesh is None:
+            raise ValueError("ZeRO sharding needs a mesh")
+        shards = ZeroShards(model, tx.names, mesh)
+    masters = shards.masters if shards is not None else [params[n] for n in tx.names]
+    state = TrainState(model=model, opt_state=tx.init(masters),
                        autoclip=autoclip_init(train_cfg.autoclip_history, device=dev),
-                       step=torch.zeros((), dtype=torch.int32, device=dev))
+                       step=torch.zeros((), dtype=torch.int32, device=dev), shards=shards)
     return state, tx
 
 
@@ -151,12 +176,18 @@ def caption_loss(model: Captioner, fwd: Dict[str, torch.Tensor], mb: dict,
 
 
 def compute_grads(model: Captioner, batch: dict, names: List[str], cap_cfg: CaptionerConfig,
-                  train_cfg: TrainConfig, visual_cfg=None, lm_apply=None
+                  train_cfg: TrainConfig, visual_cfg=None, lm_apply=None, data_group=None
                   ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """(loss, the gradients of the parameters `names`, those parameters):
     the mean over the micro-batches of the [A] axis with
     accumulate_grad_batches > 1. Only those parameters are differentiated,
-    so the backward never forms the frozen ones' gradients."""
+    so the backward never forms the frozen ones' gradients.
+
+    With a `data_group` the batch is this rank's rows of the global one:
+    each micro-batch's loss is rescaled from its own token count to the
+    global count, so the ranks' gradients sum to the global batch's, and
+    the returned loss is the global loss (the gradients are this rank's
+    part, to be summed over the group)."""
     mask = model.trainable_filter()
     params = dict(model.named_parameters())
     diff = [params[n] for n in names]
@@ -166,6 +197,8 @@ def compute_grads(model: Captioner, batch: dict, names: List[str], cap_cfg: Capt
     for mb in micro:
         fwd = forward_params(model, mask, train_cfg.bf16_compute)
         loss = caption_loss(model, fwd, mb, cap_cfg, train_cfg, visual_cfg, lm_apply)
+        if data_group is not None:
+            loss = _global_share(loss, mb["tokens"], data_group)
         g = torch.autograd.grad(loss, diff, allow_unused=True)
         g = [torch.zeros_like(p) if x is None else x for p, x in zip(diff, g)]
         loss = loss.detach()
@@ -177,11 +210,22 @@ def compute_grads(model: Captioner, batch: dict, names: List[str], cap_cfg: Capt
     if a > 1:
         torch._foreach_div_(grads, a)
         loss_sum = loss_sum / a
+    if data_group is not None:
+        all_reduce_(loss_sum, data_group)
     return loss_sum, grads, diff
 
 
+def _global_share(loss: torch.Tensor, tokens: torch.Tensor, group) -> torch.Tensor:
+    """This rank's share of the global batch's loss: its mean over its own
+    valid tokens (caption_loss's, id 0 and padding dropped) times
+    its count over the group's. Summed over the ranks, the global mean."""
+    n_local = (tokens > 0).sum()
+    n_global = all_reduce_(n_local.clone(), group)
+    return loss * (n_local.clamp(min=1).float() / n_global.clamp(min=1).float())
+
+
 def make_train_step(cap_cfg: CaptionerConfig, lm_cfg: Any, train_cfg: TrainConfig,
-                    tx: AdamW, visual_cfg: Any = None, lm_apply=None):
+                    tx: AdamW, visual_cfg: Any = None, lm_apply=None, mesh=None):
     """Build the (state, batch) -> (state, metrics) function.
 
     batch = {"tokens": int [B, T] (-1 padded)} plus either
@@ -194,22 +238,51 @@ def make_train_step(cap_cfg: CaptionerConfig, lm_cfg: Any, train_cfg: TrainConfi
     moments are updated in place; the returned state holds the new
     AutoClip ring and step, and the metrics are device tensors. lm_apply
     overrides the LM's forward (Captioner.forward), e.g. the model's own
-    `lm.apply_q8` for a frozen GPTJInt8 (JAX's lm_apply)."""
+    `lm.apply_q8` for a frozen GPTJInt8 (JAX's lm_apply), or a pipelined
+    forward (parallel/pp.py's, bound to the LM).
+
+    `mesh`: the batch is this rank's rows of the global batch (the arrays
+    it is given are those rows: core.mesh.shard_batch), and the collectives
+    of the module doc run."""
+    from ..core.mesh import DATA_AXIS, PIPE_AXIS, axis_group, axis_size
+
+    data_group = pipe_group = None
+    if mesh is not None:
+        data_group = axis_group(mesh, DATA_AXIS)
+        if axis_size(mesh, PIPE_AXIS) > 1:
+            pipe_group = axis_group(mesh, PIPE_AXIS)
+    # each pipeline stage differentiates its own chunk of the LM's blocks
+    staged = [n.startswith("lm.blocks.") for n in tx.names]
 
     def train_step(state: TrainState, batch: dict) -> Tuple[TrainState, dict]:
         loss, grads, params = compute_grads(state.model, batch, tx.names, cap_cfg, train_cfg,
-                                            visual_cfg, lm_apply)
+                                            visual_cfg, lm_apply, data_group)
+        if pipe_group is not None:
+            for g, st in zip(grads, staged):
+                if st:
+                    all_reduce_(g, pipe_group)
+        norm = None
+        if state.shards is not None:
+            grads = state.shards.reduce(grads)
+            norm = state.shards.global_norm(grads)
+        elif data_group is not None:
+            for g in grads:
+                all_reduce_(g, data_group)
         if train_cfg.gradient_clip_val < 0:
             grads, ac_state, clip_metrics = autoclip_update(
-                state.autoclip, grads, train_cfg.autoclip_percentile)
+                state.autoclip, grads, train_cfg.autoclip_percentile, norm=norm)
         else:
-            grads, pre_norm = fixed_clip(grads, train_cfg.gradient_clip_val)
+            grads, pre_norm = fixed_clip(grads, train_cfg.gradient_clip_val, norm=norm)
             ac_state = state.autoclip
             clip_metrics = {"grad_norm_pre_clip": pre_norm}
         with torch.no_grad():
-            opt_state = tx.update(grads, state.opt_state, params)
+            if state.shards is None:
+                opt_state = tx.update(grads, state.opt_state, params)
+            else:
+                opt_state = tx.update(grads, state.opt_state, state.shards.masters)
+                state.shards.gather_into(params)
         new_state = TrainState(model=state.model, opt_state=opt_state, autoclip=ac_state,
-                               step=state.step + 1)
+                               step=state.step + 1, shards=state.shards)
         metrics = {"loss": loss, "step": state.step, **clip_metrics}
         return new_state, metrics
 

@@ -14,6 +14,9 @@ run stopped: the data iterator is advanced past the batches that run
 consumed, and the epoch and step counters resume there, so the next step
 is the step an uninterrupted run would take. (The JAX loop restarts the
 data and runs the full count again after a resume.)
+
+With a `mesh` every rank reads the same global batches, in the one-process
+order, and hands the step its rows of each (JAX's shard_batch).
 """
 
 from __future__ import annotations
@@ -42,9 +45,12 @@ def fit(
     logger: Optional[MetricLogger] = None,
     validate_fn: Optional[Callable] = None,
     visual_cfg=None,
+    mesh=None,
+    lm_apply=None,
 ) -> TrainState:
     logger = logger or MetricLogger()
-    step_fn = make_train_step(cap_cfg, lm_cfg, train_cfg, tx, visual_cfg=visual_cfg)
+    step_fn = make_train_step(cap_cfg, lm_cfg, train_cfg, tx, visual_cfg=visual_cfg,
+                              lm_apply=lm_apply, mesh=mesh)
     device = state.step.device
 
     it = iter(data_iter)
@@ -57,7 +63,10 @@ def fit(
     for epoch in range(global_step // max(steps_per_epoch, 1), train_cfg.epochs):
         first = global_step - epoch * steps_per_epoch
         for _ in range(first, steps_per_epoch):
-            batch = {k: torch.tensor(v, device=device) for k, v in _next_batch(it, a).items()}
+            batch = _next_batch(it, a)
+            if mesh is not None:  # this rank's rows (the batch axis follows [A])
+                batch = _data_rows(mesh, batch, axis=0 if a == 1 else 1)
+            batch = {k: torch.tensor(v, device=device) for k, v in batch.items()}
             state, metrics = step_fn(state, batch)
             global_step += 1
 
@@ -98,6 +107,16 @@ def _next_batch(it, a: int) -> dict:
         return _as_batch(next(it))
     items = [_as_batch(next(it)) for _ in range(a)]
     return {k: np.stack([x[k] for x in items]) for k in items[0]}
+
+
+def _data_rows(mesh, batch: dict, axis: int) -> dict:
+    from ..core.mesh import data_rows
+
+    out = {}
+    for k, v in batch.items():
+        lo, hi = data_rows(mesh, v.shape[axis])
+        out[k] = np.take(v, np.arange(lo, hi), axis=axis)
+    return out
 
 
 def _as_batch(item) -> dict:

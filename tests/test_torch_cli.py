@@ -198,9 +198,10 @@ def test_infer_main_runs_end_to_end(world, tmp_path):
     JI.main(args[:-2] + spec + ["--out_filename_prefix", str(tmp_path / "jax_spec")])
     got = infer.main(args + spec + ["--out_filename_prefix", str(tmp_path / "spec")])
     assert got == json.loads((tmp_path / "jax_spec_shutterstock.json").read_text())
-    # the JAX flag the port does not have yet is refused, never ignored
-    # (--int8_decode runs: tests/test_torch_int8_paths.py)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # --tensor_parallel is JAX's: GPT-2's 25 heads do not split, so a GPT-2
+    # checkpoint is refused as JAX refuses it (GPT-J's tensor-parallel
+    # decode: tests/test_torch_parallel_tp.py)
+    with pytest.raises(ValueError, match="GPT-J"):
         infer.main(args + ["--tensor_parallel", "2"])
 
 

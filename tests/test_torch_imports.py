@@ -65,6 +65,13 @@ GENB_REST_MODULES = ["clipcap_tpu_torch.utils.tpe", "clipcap_tpu_torch.cli.sweep
                      "clipcap_tpu_torch.cli.human_eval",
                      "clipcap_tpu_torch.tools.gumbel_caption_opt"]
 
+# parallelism: the mesh, the six parallel modules, the MoE mapper and the drive
+PARALLEL_MODULES = ["clipcap_tpu_torch.core.mesh", "clipcap_tpu_torch.parallel",
+                    "clipcap_tpu_torch.parallel.sharding", "clipcap_tpu_torch.parallel.dp",
+                    "clipcap_tpu_torch.parallel.tp", "clipcap_tpu_torch.parallel.pp",
+                    "clipcap_tpu_torch.parallel.sp", "clipcap_tpu_torch.parallel.ep",
+                    "clipcap_tpu_torch.models.moe", "clipcap_tpu_torch.tools.dryrun_multichip"]
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import clipcap_tpu_torch
@@ -116,7 +123,7 @@ def test_every_module_imports_without_jax_pil_regex_or_transformers():
     assert "BAD []" in out.stdout, out.stdout
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
                  + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES
-                 + GENB_REST_MODULES):
+                 + GENB_REST_MODULES + PARALLEL_MODULES):
         assert f"'{name}'" in out.stdout, name
 
 
@@ -223,7 +230,7 @@ def test_source_has_no_jax_or_jax_package_import():
     paths = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for name in (SERVING_MODULES + INFER_MODULES + EVALUATE_MODULES + TRAIN_MODULES
                  + GPTJ_MODULES + T5_MODULES + PREPROCESS_MODULES + GENB_MODULES
-                 + GENB_REST_MODULES):
+                 + GENB_REST_MODULES + PARALLEL_MODULES):
         rel = Path(*name.split("."))
         assert ROOT / rel.with_suffix(".py") in paths or ROOT / rel / "__init__.py" in paths
     for path in paths:

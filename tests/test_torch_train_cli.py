@@ -202,10 +202,14 @@ def test_coco_pixels_with_validation(world, tmp_path, train_visual):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mesh_data", "2"], "item 12"), (["--mesh_model", "2"], "item 12"),
-    (["--zero_shard_params"], "item 12")])
+    (["--mesh_data", "2"], "needs 2 devices, have 1"),
+    (["--mesh_model", "2"], "needs 2 devices, have 1"),
+    (["--zero_shard_params", "--mesh_data", "4"], "needs 4 devices, have 1")],
+    ids=["extra0-item 12", "extra1-item 12", "extra2-item 12"])
 def test_refused_options(world, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A mesh of more ranks than the run has raises JAX's ValueError (the
+    layouts themselves: tests/test_torch_parallel_train.py)."""
+    with pytest.raises(ValueError, match=match):
         train_cli.main(_common(world, tmp_path, *extra))
 
 
