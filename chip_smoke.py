@@ -26,7 +26,9 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    SDPA's backward; K2/K3/K4 at 1, 8, 9,
    16, 64, 72 and 512 rows of V=50257
    (every cluster size the launcher picks, and each path's rows), on
-   hard rows (ties, all equal, -inf columns, top-p near 0 and 1), for
+   hard rows (ties, all equal, -inf columns, top-p near 0 and 1), with
+   top-p within ~1e-7 of a cumulative mass (the kept sets may differ by
+   the tie token: the disagreement is bounded), for
    bit-identical repeats and Philox draws inside the kept set, and timed
    at 8, 16, 64, 72 and 512 rows with the cluster size used;
 4. drives the main path at full width — CLIP ViT-B/32 at 224 px, the default
@@ -48,7 +50,8 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    with the launch counters set to 0 just before and read just after;
    checks K1 per encoder call, K2 per decode step, one finite-scored JSON
    entry per image, and the best beams of two images against the CPU;
-   times and profiles the beam call;
+   times and profiles the beam call; then cli.serve --target_p50_s on the
+   checkpoint picks its slot count from the stored H100 curve (f5);
 7. drives the evaluate path (cli/evaluate.py) on the same checkpoint and on
    the model cast to bf16, written by the port's writer and read back bit
    for bit: cli.evaluate.main over 16 seeded JPEGs with 5 captions each in
@@ -62,7 +65,9 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 8. drives the training path (cli/train.py) at full width (CLIP ViT-B/32,
    the CLI's default mapper with --prefix_size 512, GPT-2 124M, batch 16,
    bf16 compute, remat, AutoClip): 12 steps on seeded prefix shards in two
-   files, a resume from the step-7 checkpoint, 12 prefix-only steps; then
+   files, a resume from the step-7 checkpoint, 12 prefix-only steps, a
+   resume from the committed train state the JAX package saved (h3: on
+   the card and on the CPU, losses held within CARD_VS_CPU); then
    (g)'s COCO folder with (f)'s CLIP ViT-B/32, 3 steps and one validation,
    and 2 steps with --train_visual_encoder, with the launch counters set to
    0 just before these two runs and read just after; checks finite losses,
@@ -619,6 +624,86 @@ def prologue_plain(torch, x, appears, suppress, penalty, temperature, eos):
     return x * (1.0 / temperature)
 
 
+TIE_OFFSETS = (-1e-7, -3e-8, 0.0, 3e-8, 1e-7)  # top-p this far (relative) from a mass
+TIE_BOUND = 1e-5  # a token kept by one side only has a mass before it this near top-p
+
+
+def check_top_p_ties(torch, FS, S, vocab: int, rows: int = 72) -> dict:
+    """K2, K3 and K4 with each row's top-p put within ~1e-7 (relative) of a
+    cumulative mass of its row (TIE_OFFSETS, then f32 rounding), where
+    K2's fixed-point mass and the plain version's f32 sums may keep
+    different sets. The disagreement is bounded, not avoided: a token kept
+    by one side only must have a mass before it (f64, ties grouped) within
+    TIE_BOUND of top-p; next and alt equal the plain version's unless one
+    of them is such a token; alt_prob within SAMPLER_RTOL plus the share of
+    the kept mass such tokens hold. Returns the counts and worst figures."""
+    x, _, sweep, noise, _, _ = sampler_inputs(torch, S, rows, vocab, rows + 1)
+    v, order = torch.sort(x.double(), dim=-1, descending=True)
+    q = torch.softmax(v, dim=-1)
+    cum = torch.cumsum(q, dim=-1)
+    # each token's mass before it: of the values strictly above its own
+    iota = torch.arange(vocab, device="cuda").expand(rows, vocab)
+    starts = torch.ones_like(v, dtype=torch.bool)
+    starts[:, 1:] = v[:, 1:] != v[:, :-1]
+    first = torch.cummax(torch.where(starts, iota, torch.zeros_like(iota)), dim=-1).values
+    before_sorted = torch.where(first > 0, cum.gather(1, (first - 1).clamp(min=0)),
+                                torch.zeros_like(cum))
+    before = torch.empty_like(before_sorted).scatter_(1, order, before_sorted)
+    # top-p at the cumulative mass where the sweep's value falls (inside a
+    # group of equal values no cut can fall, and both sides keep the group)
+    j = (cum <= sweep.double()[:, None]).sum(dim=-1, keepdim=True).clamp(max=vocab - 1)
+    mass = cum.gather(1, j)[:, 0]
+    offsets = torch.tensor(TIE_OFFSETS, device="cuda", dtype=torch.float64)
+    top_p = (mass * (1 + offsets.repeat(rows // len(TIE_OFFSETS) + 1)[:rows])).float()
+    kk0 = torch.zeros(rows, device="cuda")
+
+    kept_k = torch.isfinite(FS.fused_filter(x, 0, top_p, do_topk=False))
+    kept_p = torch.isfinite(FS.fused_filter_plain(x, kk0, top_p, do_topk=False))
+    only = kept_k ^ kept_p
+    pd = top_p.double()[:, None]
+    off = torch.where(only, (before - pd).abs() / pd, torch.zeros_like(before))
+    check(bool((off <= TIE_BOUND).all()),
+          f"top-p ties [{rows}, {vocab}]: a token kept by one side only has a mass before it "
+          f"{float(off.max()):.2e} (relative) from top-p, beyond {TIE_BOUND}")
+    probs = torch.softmax(x.double(), dim=-1)
+    share = torch.where(only, probs, torch.zeros_like(probs)).sum(-1) / top_p.double()
+    plain = FS.sampler_plain(x, kk0, top_p, 7, do_topk=False, do_topp=True, want_alt_prob=True,
+                             gumbel_noise=noise)
+    worst = 0.0
+    for name, got in (("K2", FS.fused_filter_sample(x, 0, top_p, 7, do_topk=False,
+                                                    gumbel_noise=noise)),
+                      ("K3", FS.fused_step_sample(x, 0, top_p, 7, do_topk=False,
+                                                  gumbel_noise=noise))):
+        ar = torch.arange(rows, device="cuda")
+        in_only = [only[ar, t.long()] for t in (got[0], got[1], plain[0], plain[1])]
+        moved_next = in_only[0] | in_only[2]
+        moved_alt = moved_next | in_only[1] | in_only[3]
+        check(bool(((got[0] == plain[0]) | moved_next).all()),
+              f"{name} top-p ties: next differs from the plain version away from a tie token")
+        check(bool(((got[1] == plain[1]) | moved_alt).all()),
+              f"{name} top-p ties: alt differs from the plain version away from a tie token")
+        same = ~moved_alt
+        err = (got[2].double() - plain[2].double()).abs()
+        allowed = 1e-7 + (SAMPLER_RTOL + share) * plain[2].double().abs()
+        check(bool(((err <= allowed) | ~same).all()),
+              f"{name} top-p ties: alt_prob off by {float(err.max()):.3e}, beyond the kept "
+              f"mass's share of the tie tokens")
+        agree = ~only.any(-1) & (plain[2] > 0)
+        rel = torch.where(agree, err / plain[2].double(), torch.zeros_like(err))
+        worst = max(worst, float(rel.max()))
+    diff_rows = int(only.any(-1).sum())
+    stats = dict(rows_differing=diff_rows, most_tokens=int(only.sum(-1).max()),
+                 worst_tie_offset=float(off.max()), largest_tie_share=float(share.max()),
+                 worst_alt_prob_rel=worst)
+    say(f"top-p ties [{rows}, {vocab}]: top-p within {max(map(abs, TIE_OFFSETS)):.0e} of a "
+        f"cumulative mass; kept sets differ on {diff_rows} rows (at most {stats['most_tokens']} "
+        f"tokens, each with a mass before it {stats['worst_tie_offset']:.2e} from top-p, "
+        f"holding up to {stats['largest_tie_share']:.2e} of the kept mass); K2/K3 next/alt "
+        f"equal the plain version's away from those tokens, alt_prob within the tokens' share, "
+        f"and within {worst:.2e} relative on the rows whose sets agree")
+    return stats
+
+
 def check_sampler(torch, FS, S, vocab: int = 50257, sampler_rows=SAMPLER_ROWS,
                   timed_rows=TIMED_ROWS, eos: int = 50256):
     """K2/K3 (and K4's correctness) against their plain versions at every
@@ -764,6 +849,8 @@ def check_sampler(torch, FS, S, vocab: int = 50257, sampler_rows=SAMPLER_ROWS,
     say(f"hard rows [{rows}, {vocab}] (0.25-quantised, all-equal, -inf columns, narrow; top-k "
         f"{HARD_KK + [vocab]}, top-p {HARD_PP} kept {TIE_MARGIN} from every cumulative mass): K2/K3 "
         f"next/alt exact, K4 exact, Philox inside the kept set")
+
+    check_top_p_ties(torch, FS, S, vocab)
 
     # device times at the main path's flags: top-p only, Philox, no alt_prob
     step_main = dict(penalty=1.2, eos_token_id=eos, want_eos_lp=True)
@@ -1408,8 +1495,51 @@ def infer_path(torch, counters, bundle, card: str, work: Path):
                  launches_per_step=prof["launches"] / BEAM_NEW)
     say(f"(f) beam call on {card}: {prof['launches'] / BEAM_NEW:.1f} kernel launches per "
         f"beam step ({prof['launches']} in {BEAM_NEW} steps and the prefill)")
+    rates["target_p50"] = serve_target_p50(torch, counters, work, card)
     say(f"infer phase (f): {time.perf_counter() - t_phase:.1f} s")
     return launches, rates, dict(bundle=loaded, visual=visual, text=text)
+
+
+def serve_target_p50(torch, counters, work: Path, card: str) -> dict:
+    """(f5) cli.serve.main --target_p50_s on the main bundle's checkpoint:
+    the slot count it prints is pick_slots_for_p50's on the stored H100
+    curve (cli/serve.LATENCY_CURVE_P50_S, at its 256-slot p50), and it
+    serves 64 seeded feature rows at top-p 0.8, K2 every step."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from clipcap_tpu_torch.cli import serve as serve_cli
+
+    target = serve_cli.LATENCY_CURVE_P50_S[256]
+    want = serve_cli.pick_slots_for_p50(target)
+    np.save(work / "serve_feats.npy",
+            np.random.default_rng(41).normal(size=(64, 512)).astype(np.float32))
+    printed = io.StringIO()
+    before = counters()["fused_filter_sample"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        n = serve_cli.main(["--checkpoint_path", str(work / "ckpt"),
+                            "--tokenizer_vocab_dir", str(work / "vocab"),
+                            "--prefixes_npy", str(work / "serve_feats.npy"),
+                            "--out_jsonl", str(work / "serve_p50.jsonl"),
+                            "--target_p50_s", str(target), "--top_p", "0.8",
+                            "--max_new_tokens", "24", "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k2 = counters()["fused_filter_sample"] - before
+    lines = [json.loads(x) for x in (work / "serve_p50.jsonl").read_text().splitlines()]
+    check(f"target_p50_s={target}: serving with {want} slots" in printed.getvalue(),
+          f"(f5) cli.serve --target_p50_s {target} did not pick {want} slots: "
+          f"{printed.getvalue()[:200]!r}")
+    check(n == 64 and len(lines) == 64 and all(0 < x["tokens"] <= 24 for x in lines),
+          "(f5) cli.serve --target_p50_s: wrong JSONL")
+    check(k2 > 0, "(f5) cli.serve --target_p50_s: K2 was not launched")
+    say(f"(f5) cli.serve.main --target_p50_s {target} on {card}: {want} slots from the stored "
+        f"H100 curve {serve_cli.LATENCY_CURVE_P50_S}, 64 requests at top-p 0.8 in {secs:.1f} s "
+        f"(loading included), K2 +{k2}")
+    return dict(target_p50_s=target, slots=want, s=secs, k2_launches=k2)
 
 
 # --- 7. the evaluate path ------------------------------------------------------------
@@ -1817,6 +1947,69 @@ def write_shards(folder: Path, seed: int) -> None:
         write_npy_shard(folder / "tokens" / f"{i:03d}.npy", tokens)
 
 
+# a train state that the JAX package saved and consolidated
+# (tests/fixtures/generate_jax_train_state.py: a tiny GPT-2 captioner, 2
+# steps, bf16 compute, the CLI's AutoClip ring of 50,000 and weight decay
+# 0.01), and the cli.train flags of its configuration (that script's
+# CLI_ARGS); resumed, it takes steps 3 and 4
+JAX_STATE = ROOT / "tests" / "fixtures" / "jax_train_state"
+JAX_STATE_ARGS = ["--prefix_size", "8", "--prefix_length", "4", "--clip_prefix_length", "2",
+                  "--num_layers", "1", "--num_attention_heads", "2", "--batch_size", "4",
+                  "--epochs", "1", "--max_steps", "4", "--optimizer_lr", "1e-2",
+                  "--scheduler_warmup_steps", "1"]
+
+
+def resume_jax_state(torch, work: Path, card: str):
+    """(h3) cli.train.main --resume_from the committed JAX train state, on
+    the card and on the CPU, over the same seeded shards of 4 batches of 4
+    (the first two skipped as consumed): steps 3 and 4 logged, finite, and
+    the card's losses within CARD_VS_CPU of the CPU's. Returns the seconds
+    and the figures."""
+    import contextlib
+    import math
+
+    import numpy as np
+
+    from clipcap_tpu_torch.cli import train as train_cli
+    from clipcap_tpu_torch.data.npy_reader import write_npy_shard
+
+    rng = np.random.default_rng(23)
+    shards = work / "jax_state_shards"
+    tokens = rng.integers(1, 64, size=(16, 9)).astype(np.int64)
+    tokens[:, -2:] = -1
+    write_npy_shard(shards / "prefixes" / "0.npy", rng.normal(size=(16, 8)).astype(np.float32))
+    write_npy_shard(shards / "tokens" / "0.npy", tokens)
+    t0 = time.perf_counter()
+
+    def run(device):
+        out = work / f"train_jax_state_{device}"
+        with open(work / f"train_jax_state_{device}.log", "w") as log, \
+                contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+            res = train_cli.main(JAX_STATE_ARGS + [
+                "--resume_from", str(JAX_STATE), "--prefix_data_path", str(shards),
+                "--lm_config_json", str(JAX_STATE / "lm_config.json"),
+                "--tokenizer_vocab_dir", str(work / "vocab"), "--output_dir", str(out),
+                "--log_every_n_steps", "1", "--save_every_epochs", "0",
+                "--save_every_steps", "0", "--device", device])
+        losses, _ = train_metrics(out)
+        check(sorted(losses) == [3, 4] and int(res["state"].step) == 4
+              and all(math.isfinite(v) for v in losses.values()),
+              f"(h3) the resume from the JAX train state on {device} logged {losses}")
+        shutil.rmtree(out)
+        return [losses[3], losses[4]]
+
+    card_l, cpu_l = run("cuda"), run("cpu")
+    secs = time.perf_counter() - t0
+    err = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+    check(all(abs(a - b) <= CARD_VS_CPU[0] + CARD_VS_CPU[1] * abs(b)
+              for a, b in zip(card_l, cpu_l)),
+          f"(h3) the resumed JAX state's losses on the card {card_l} against the CPU {cpu_l}")
+    say(f"(h3) cli.train.main --resume_from a JAX train state ({JAX_STATE.name}, step 2) on "
+        f"{card}: steps 3-4, losses {card_l[0]!r}, {card_l[1]!r}; the CPU's {cpu_l[0]!r}, "
+        f"{cpu_l[1]!r} (|diff| {err:.3e}, atol/rtol {CARD_VS_CPU[0]}); both runs {secs:.1f} s")
+    return secs, dict(card_losses=card_l, cpu_losses=cpu_l, card_vs_cpu=err)
+
+
 def train_metrics(out: Path):
     """metrics.jsonl of a cli.train run: the logged loss by step, and every line."""
     lines = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
@@ -1964,6 +2157,8 @@ def train_path(torch, counters, card: str, work: Path) -> tuple:
         f"initialised, the mapper moved")
     del res, model, init
     shutil.rmtree(po_dir)
+
+    secs["jax_state"], jax_state = resume_jax_state(torch, work, card)
 
     # (h2) pixels: 3 steps and a validation, then 2 steps with the encoder trained
     real_make, per_step = trainer.make_train_step, []
@@ -2125,6 +2320,7 @@ def train_path(torch, counters, card: str, work: Path) -> tuple:
     say(f"training phase (h): {time.perf_counter() - t_phase:.1f} s (cli.train runs: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
     return launches, dict(timing=timing, cli_s=secs, resume_loss_diff=resume_err,
+                          jax_state=jax_state,
                           card_vs_cpu=err, bf16_loss_diff=bf16_diff,
                           validation_loss=val[0]["val/validation_loss"],
                           handles=dict(args=shards, losses={i: losses[i] for i in (1, 2, 3)}))

@@ -14,22 +14,36 @@ line per image.
 CKPT is a checkpoint directory (train/checkpoints.py) with a GPT-2, GPT-J
 or T5/T0 LM, VOCAB its LM's tokenizer files (GPT-J uses GPT-2's BPE files,
 T5 a `tokenizer.json`); the server runs on the card unless `--device cpu`.
+
+`--target_p50_s` picks the slot count from LATENCY_CURVE_P50_S, measured
+on an H100 by tools/serving_latency_curve.py, by JAX's rule.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 
-def pick_slots_for_p50(target_p50_s: float, curve: Dict[int, float]) -> int:
-    """The largest slot count whose measured p50 request latency (`curve`:
-    slot count -> seconds, measured on the card that serves) meets the
+#: serving latency curve on the card: slot count -> median p50 request
+#: latency_s over 3 timed runs of tools/serving_latency_curve.py (GPT2-XL
+#: int8 at 48 layers, 2,048 requests with caps ~N(12, 4) clipped to [5, 30],
+#: top-p 0.8, K3 every step), measured on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W (PERF.md). The card is busy 29 / 38 / 61 % of a run's wall and
+#: the shared host sets the rest: the figures move between calls and
+#: machines, so read them as the order of the slot counts.
+LATENCY_CURVE_P50_S = {128: 3.714, 256: 5.037, 512: 5.065}
+
+
+def pick_slots_for_p50(target_p50_s: float, curve: Optional[Dict[int, float]] = None) -> int:
+    """The largest measured slot count whose p50 request latency (`curve`:
+    slot count -> seconds; LATENCY_CURVE_P50_S by default) meets the
     target, since throughput grows with slots; the smallest measured count
     when nothing fits."""
+    curve = curve if curve is not None else LATENCY_CURVE_P50_S
     fitting = [s for s, p50 in curve.items() if p50 <= target_p50_s]
     return max(fitting) if fitting else min(curve)
 
@@ -104,8 +118,11 @@ def main(argv=None):
     p.add_argument("--out_jsonl", required=True)
     p.add_argument("--slots", type=int, default=256)
     p.add_argument("--target_p50_s", type=float, default=None,
-                   help="pick --slots from a latency curve measured on the card (none is "
-                        "measured yet: the flag is refused)")
+                   help="pick --slots from the latency curve measured on an H100 "
+                        "(LATENCY_CURVE_P50_S: GPT2-XL int8, 2,048 short captions): the "
+                        "largest slot count whose p50 meets the target. Its figures are "
+                        "medians of runs that the host holds back, which move between "
+                        "calls and machines")
     p.add_argument("--refill_size", type=int, default=0, help="0 = slots // 8")
     p.add_argument("--steps_per_sync", type=int, default=16)
     p.add_argument("--max_request_length", type=int, default=0,
@@ -124,10 +141,6 @@ def main(argv=None):
     p.add_argument("--eos_token_id", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.target_p50_s is not None:
-        # the JAX CLI reads a curve measured on a TPU; no TPU figure serves here
-        raise NotImplementedError("--target_p50_s needs a serving latency curve measured on "
-                                  "the card, and none is measured yet (PERF.md); pass --slots")
 
     from .loading import load_captioner_bundle
 
@@ -135,9 +148,13 @@ def main(argv=None):
                                    device=args.device)
     if args.int8_decode:
         bundle.enable_int8_decode()
+    slots = args.slots
+    if args.target_p50_s is not None:
+        slots = pick_slots_for_p50(args.target_p50_s)
+        print(f"target_p50_s={args.target_p50_s}: serving with {slots} slots")
     n = serve_shard(
         bundle, np.load(args.prefixes_npy), args.out_jsonl,
-        slots=args.slots, refill_size=args.refill_size, steps_per_sync=args.steps_per_sync,
+        slots=slots, refill_size=args.refill_size, steps_per_sync=args.steps_per_sync,
         max_request_length=args.max_request_length, max_new_tokens=args.max_new_tokens,
         top_p=args.top_p, top_k=args.top_k, temperature=args.temperature,
         repetition_penalty=args.repetition_penalty,

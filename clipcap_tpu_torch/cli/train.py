@@ -21,8 +21,11 @@ With --acc_grad_batches A, each step takes A loader batches, stacked on
 a leading axis, and an epoch has 1/A as many steps (the JAX CLI hands the
 step one unstacked batch). Everything runs on the card unless
 `--device cpu`. --resume_from takes a checkpoint directory this CLI wrote
-(`{prefix}_latest` and the others); the run continues at the step after
-it.
+(`{prefix}_latest` and the others), or a train state the JAX package
+saved, once JAX's `consolidate(ckpt, ckpt + "/consolidated.npz")` has
+written it out (train/checkpoints.py): a run moves from the TPU to the
+card mid-training, with the options it was trained with. The run
+continues at the step after it.
 
 Several cards: one process per card, `torchrun --nproc_per_node N -m
 clipcap_tpu_torch.cli.train ...`, on JAX's (data, model) mesh: `data` is
@@ -108,7 +111,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_log_samples", type=int, default=64)
     p.add_argument("--max_steps", type=int, default=None, help="cap steps (debug)")
     p.add_argument("--resume_from", default=None,
-                   help="checkpoint directory to resume params/opt-state/step from")
+                   help="checkpoint directory to resume params/opt-state/step from: one this "
+                        "CLI wrote, or a JAX package checkpoint with the consolidated.npz "
+                        "that its consolidate() writes")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p

@@ -297,6 +297,18 @@ class _Int8Block(GPT2Block):
         self.c_fc = Int8Linear.empty(d, 4 * d, bias_dtype=bf16, device=device)
         self.mlp_proj = Int8Linear.empty(4 * d, d, bias_dtype=bf16, device=device)
 
+    def finish(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+        """GPT2Block.finish as compiled JAX computes it: ln2 normalizes the
+        attention residual's unrounded f32 sum (XLA keeps a bf16 add that
+        feeds a norm in f32; the residual stream goes on rounded), and the
+        MLP's int8 input is quantized from gelu_new's unrounded f32 product.
+        With both, the logits equal jax.jit's bit for bit
+        (tests/test_torch_gpt2_int8.py)."""
+        y = self.c_proj(attn.reshape(x.shape).to(x.dtype))
+        s = x.float() + y  # y widens exactly; rounded, s is the bf16 x + y
+        m = gelu_new(self.c_fc(self.ln2(s).to(x.dtype)), f32_product=True)
+        return s.to(x.dtype) + self.mlp_proj(m, out_dtype=x.dtype)
+
 
 class GPT2Int8(nn.Module):
     """The int8 decode LM (JAX's `gpt2_int8` module over `quantize_params`

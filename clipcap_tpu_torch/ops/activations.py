@@ -52,7 +52,7 @@ def gelu_new(x: torch.Tensor, f32_product: bool = False) -> torch.Tensor:
     cube = torch.pow(x.float(), 3.0).to(x.dtype)
     half, gate = 0.5 * x, 1.0 + torch.tanh(c * (x + k * cube))
     if f32_product:
-        return half.float() * gate.float()
+        return half.float() * gate  # gate widens exactly inside the product
     return half * gate
 
 

@@ -15,15 +15,27 @@ A checkpoint is a directory holding
   parameters under the port's parameter names, and the AutoClip ring
   `autoclip.history`, `autoclip.count`, `autoclip.pos`. The loaders read
   `params.` alone, so a trained checkpoint serves cli.infer and
-  cli.evaluate as it is. The moments are in the port's layout, not in
-  optax's consolidated opt_state, which the port does not read.
+  cli.evaluate as it is.
 
-The JAX package saves Orbax directories, which need JAX to read. Its
-`consolidate(path, path + "/consolidated.npz")` writes the `.npz` beside
-them; the port reads that. `save_checkpoint` writes the same layout from
-a port Captioner, so the JAX package's `consolidate` format round-trips.
-The names JAX's CheckpointSaver gives (`{prefix}_epoch_{e}`,
-`{prefix}_latest`, `{prefix}_final`) are directories here too.
+`restore_checkpoint` also resumes a train state that the JAX package
+saved: its Orbax directory consolidated by JAX's `consolidate(path, path +
+"/consolidated.npz")`. There the optimizer state is optax's: under
+`opt_state.inner_states.train.inner_state.` the Adam count and moments
+(`0.count`, `0.mu.PATH`, `0.nu.PATH`, where PATH is a trainable leaf's
+path in JAX's parameter tree: the frozen branch of `multi_transform`
+holds no state) and the schedule's count (`2.count`). The moments go
+through the parameters' own conversion (convert.captioner_state_dict):
+Adam is elementwise, so the transposes, the fused qkv and the [L]
+unstacking are the same. So a run moves from the TPU to the card mid-
+training; the JAX package resumes only from Orbax, so a port checkpoint
+does not go back.
+
+The JAX package saves Orbax directories, which need JAX to read; the
+port reads the `.npz` that `consolidate` writes beside them.
+`save_checkpoint` writes the same layout from a port Captioner, so the
+JAX package's `consolidate` format round-trips. The names JAX's
+CheckpointSaver gives (`{prefix}_epoch_{e}`, `{prefix}_latest`,
+`{prefix}_final`) are directories here too.
 
 Each leaf keeps its dtype. `consolidate` writes a bf16 leaf as 2-byte
 records (`np.asarray` of a JAX bf16 array is an ml_dtypes bfloat16
@@ -35,7 +47,8 @@ writes their header as `|V2` where ml_dtypes writes `<V2`; both load as
 
 In a multi-process run every rank calls the writer (a ZeRO state's moments
 are all-gathered first, a collective), and global rank 0 alone writes: a
-ZeRO run's file is a plain run's, and resumes with or without ZeRO.
+ZeRO run's file is a plain run's, and resumes with or without ZeRO; so
+does a JAX state.
 """
 
 from __future__ import annotations
@@ -51,6 +64,10 @@ from .. import convert
 
 CONFIG_FILE = "clipcap_config.json"
 PARAMS_FILE = "consolidated.npz"
+# optax's state in a consolidated JAX TrainState: multi_transform's "train"
+# branch, the adamw chain (0: scale_by_adam, 2: the schedule's count)
+JAX_ADAM = "opt_state.inner_states.train.inner_state.0."
+JAX_SCHEDULE_COUNT = "opt_state.inner_states.train.inner_state.2.count"
 
 
 def _config_payload(cap_cfg, lm_cfg, train_cfg) -> dict:
@@ -164,42 +181,99 @@ def save_checkpoint(path: str, state, cap_cfg, lm_cfg, train_cfg: Optional[Any] 
         json.dumps(_config_payload(cap_cfg, lm_cfg, train_cfg), indent=2))
 
 
+def _port_moments(flat: dict, names, path):
+    """count, mu, nu of the port's own layout (save_checkpoint's)."""
+    missing = [n for n in names if f"opt_state.mu.{n}" not in flat]
+    if missing:
+        raise KeyError(f"{path} has no Adam moments for {missing[:3]}...: it was saved by a run "
+                       f"that trained other parameters")
+    return (flat["opt_state.count"], [flat[f"opt_state.mu.{n}"] for n in names],
+            [flat[f"opt_state.nu.{n}"] for n in names])
+
+
+def _jax_moments(flat: dict, names, lm_type: str, path):
+    """count, mu, nu of a consolidated JAX TrainState, in the port's names
+    and layout. The moments of the trainable leaves are put in a tree of
+    the parameters' shapes and converted as the parameters are; a tree of
+    ones over the leaves they cover, converted alike, says which port
+    parameters they cover, and those must be the ones this run trains."""
+    counts = {"Adam": flat[JAX_ADAM + "count"], "schedule": flat[JAX_SCHEDULE_COUNT],
+              "step": flat["step"]}
+    if len({int(c) for c in counts.values()}) != 1:
+        raise ValueError(f"{path}: the JAX train state's counts disagree ({counts}); "
+                         f"a resume needs one step count")
+    leaves = {k[len("params."):]: v for k, v in flat.items() if k.startswith("params.")}
+    moments = {}
+    for key in ("mu", "nu"):
+        prefix = f"{JAX_ADAM}{key}."
+        moments[key] = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    strays = sorted(set(moments["mu"]) - set(leaves))
+    if strays or set(moments["mu"]) != set(moments["nu"]):
+        raise KeyError(f"{path}: the JAX train state's Adam moments name leaves its parameters "
+                       f"do not have ({strays[:3]})")
+
+    def convert_tree(values: dict):
+        tree = _unflatten({k: values.get(k, np.zeros(np.shape(v), np.float32))
+                           for k, v in leaves.items()})
+        return convert.captioner_state_dict(tree, lm_type)
+
+    covered = convert_tree({k: np.ones(np.shape(leaves[k]), np.float32) for k in moments["mu"]})
+    trained = set(names)
+    missing = [n for n in names if not covered[n].all()]
+    extra = [n for n, c in covered.items() if n not in trained and c.any()]
+    if missing or extra:
+        raise KeyError(f"{path}: the JAX train state's Adam moments cover other parameters than "
+                       f"this run trains (none for {missing[:3]}; moments for {extra[:3]}, "
+                       f"which it does not train): resume with the options it was trained with "
+                       f"(prefix_only, train_visual_encoder)")
+    mu, nu = (convert_tree(moments[key]) for key in ("mu", "nu"))
+    return counts["Adam"], [mu[n] for n in names], [nu[n] for n in names]
+
+
 def restore_checkpoint(path: str, template):
     """The train state saved at `path`, restored onto `template` (a
     TrainState of the same configuration, train_step.create_train_state):
     its model's parameters are overwritten in place, each in its stored
     dtype, and the moments, AutoClip ring and step are read onto the
-    model's device. Raises for a checkpoint without a train state (one
-    written from a bare Captioner) and, with read_params' message, for an
-    Orbax directory."""
+    model's device. `path` is a checkpoint the port wrote, or a JAX train
+    state that the JAX package's `consolidate` wrote out (its optax state
+    mapped to the port's parameters; its Adam count, schedule count and
+    step must agree). Raises for a checkpoint without a train state (one
+    written from a bare Captioner), for moments of other parameters than
+    the template trains, for an AutoClip ring of another length than the
+    template's, and, with read_params' message, for an Orbax directory."""
     model = template.model
     device = next(model.parameters()).device
     with np.load(_npz(path), allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     if "step" not in flat:
         raise KeyError(f"{path} holds parameters only, no train state to resume from")
+    ring, want = np.shape(flat["autoclip.history"]), tuple(template.autoclip.history.shape)
+    if ring != want:
+        raise ValueError(f"{path}: its AutoClip ring holds {ring[0]} gradient norms where this "
+                         f"run keeps {want[0]} (autoclip_history): resume with the history it "
+                         f"was trained with")
     params = _unflatten({k: v for k, v in flat.items() if k.startswith("params.")})["params"]
     convert.load(model, convert.captioner_state_dict(params, model.cfg.lm_type))
 
-    def tensor(key):
-        return convert.to_torch(flat[key]).to(device)
+    def tensor(value):
+        return convert.to_torch(value).to(device)
 
     names = [n for n, keep in model.trainable_filter().items() if keep]
-    missing = [n for n in names if f"opt_state.mu.{n}" not in flat]
-    if missing:
-        raise KeyError(f"{path} has no Adam moments for {missing[:3]}...: it was saved by a run "
-                       f"that trained other parameters")
-    mu = [tensor(f"opt_state.mu.{n}") for n in names]
-    nu = [tensor(f"opt_state.nu.{n}") for n in names]
+    if JAX_ADAM + "count" in flat:
+        count, mu, nu = _jax_moments(flat, names, model.cfg.lm_type, path)
+    else:
+        count, mu, nu = _port_moments(flat, names, path)
+    mu, nu = [tensor(m) for m in mu], [tensor(m) for m in nu]
     shards = getattr(template, "shards", None)
     if shards is not None:  # a ZeRO state keeps this rank's shards
         params = dict(model.named_parameters())
         mu, nu = shards.shard(mu), shards.shard(nu)
         shards.masters = shards.shard([params[n].detach() for n in names])
-    opt_state = template.opt_state._replace(count=tensor("opt_state.count"), mu=mu, nu=nu)
-    autoclip = type(template.autoclip)(*(tensor(f"autoclip.{k}")
+    opt_state = template.opt_state._replace(count=tensor(count), mu=mu, nu=nu)
+    autoclip = type(template.autoclip)(*(tensor(flat[f"autoclip.{k}"])
                                          for k in ("history", "count", "pos")))
-    return template._replace(opt_state=opt_state, autoclip=autoclip, step=tensor("step"))
+    return template._replace(opt_state=opt_state, autoclip=autoclip, step=tensor(flat["step"]))
 
 
 class CheckpointSaver:

@@ -205,7 +205,7 @@ def test_infer_main_runs_end_to_end(world, tmp_path):
         infer.main(args + ["--tensor_parallel", "2"])
 
 
-def test_serve_main_matches_jax(world, tmp_path):
+def test_serve_main_matches_jax(world, tmp_path, capsys):
     d, _ = world
     args = ["--checkpoint_path", str(d / "ckpt"), "--tokenizer_vocab_dir", str(d / "vocab"),
             "--prefixes_npy", str(d / "feats.npy"), "--slots", "4", "--steps_per_sync", "4",
@@ -214,8 +214,17 @@ def test_serve_main_matches_jax(world, tmp_path):
     assert serve.main(args + ["--out_jsonl", str(tmp_path / "port.jsonl"), "--device", "cpu"]) == 5
     want = (tmp_path / "jax.jsonl").read_text().splitlines()
     assert (tmp_path / "port.jsonl").read_text().splitlines() == want and len(want) == 5
-    with pytest.raises(NotImplementedError):  # --int8_decode runs: test_torch_int8_paths.py
-        serve.main(args + ["--out_jsonl", str(tmp_path / "x.jsonl"), "--target_p50_s", "0.5"])
+    # --target_p50_s picks by JAX's rule from the card's curve (--int8_decode
+    # runs: test_torch_int8_paths.py); greedy captions do not depend on it
+    assert serve.pick_slots_for_p50(1.0) == JSV.pick_slots_for_p50(1.0, serve.LATENCY_CURVE_P50_S)
+    for target in (0.5, serve.LATENCY_CURVE_P50_S[256]):
+        capsys.readouterr()
+        out = tmp_path / f"p50_{target}.jsonl"
+        assert serve.main(args + ["--out_jsonl", str(out), "--device", "cpu",
+                                  "--target_p50_s", str(target)]) == 5
+        slots = JSV.pick_slots_for_p50(target, curve=serve.LATENCY_CURVE_P50_S)
+        assert f"target_p50_s={target}: serving with {slots} slots" in capsys.readouterr().out
+        assert out.read_text().splitlines() == want
 
 
 def test_loaders_refuse_what_is_not_ported(world):

@@ -13,6 +13,8 @@ package's gpt2_int8 on the CPU.
   scatter_refill_q8 (the pasted window bit for bit);
 - the golden `greedy_int8` tokens (tests/fixtures/golden_tokens.json, on
   JAX's captioner.init converted to the port) token for token;
+- at the golden config, prefill and decode logits equal jax.jit's bit for
+  bit (XLA's fusions keep two bf16 roundings out, and the port does too);
 - the shared-prefix beam step bit-equal to decode_step on the
   beam-replicated cache, through index_select reorders, and close to
   JAX's decode_step_beam_q8.
@@ -197,6 +199,36 @@ def test_golden_greedy_int8():
     out = TE.generate(lm, prefix, TE.GenerationSettings(max_new_tokens=GOLDEN["new_tokens"],
                                                         greedy=True), device="cpu")
     assert out["tokens"].tolist() == GOLDEN["greedy_int8"]
+
+
+def test_logits_equal_jitted_jax_at_the_golden_config():
+    """At the golden config (GPT-2's vocabulary, 256 wide, 6 layers) the
+    port's int8 prefill and decode steps give jax.jit's logits bit for bit:
+    ln2 reads the attention residual's unrounded f32 sum and the MLP's int8
+    input is gelu_new's unrounded f32 product, as XLA fuses them
+    (_Int8Block.finish). Eager JAX rounds both to bf16."""
+    cfg = JC.GPT2Config(**GOLDEN["lm_cfg"])
+    lm = TG.GPT2(TC.GPT2Config(**GOLDEN["lm_cfg"]), device="cpu", seed=3)
+    params = jax.tree_util.tree_map(jnp.asarray, convert.gpt2_params(
+        {k: convert.to_numpy(v) for k, v in lm.state_dict().items()}, cfg.n_layer))
+    qparams = JG.quantize_params(params)
+    model = convert.load(TG.GPT2Int8(TC.GPT2Config(**GOLDEN["lm_cfg"]), device="cpu"),
+                         convert.gpt2_state_dict(_np(qparams)))
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 10, cfg.n_embd)).astype(np.float32)
+    jl, jc = jax.jit(JG.prefill_q8, static_argnums=(1, 4))(
+        qparams, cfg, jnp.asarray(x), JG.init_cache_q8(cfg, 2, 14), True)
+    with torch.no_grad():
+        tl, tc = model.prefill(_torch(x), model.init_cache(2, 14), full_logits=True)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    step = jax.jit(JG.decode_step_q8, static_argnums=1)
+    for s in range(3):
+        e = rng.normal(size=(2, 1, cfg.n_embd)).astype(np.float32)
+        jl, jc = step(qparams, cfg, jnp.asarray(e), jc)
+        with torch.no_grad():
+            tl, tc = model.decode_step(_torch(e), tc)
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl).reshape(tl.shape),
+                                      err_msg=f"decode step {s}")
 
 
 @pytest.fixture(scope="module")

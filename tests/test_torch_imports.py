@@ -18,7 +18,8 @@ from clipcap_tpu_torch.core import config as torch_config
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "clipcap_tpu_torch"
 SERVING_MODULES = ["clipcap_tpu_torch.ops.ring", "clipcap_tpu_torch.decode.serving",
-                   "clipcap_tpu_torch.cli", "clipcap_tpu_torch.cli.serve"]
+                   "clipcap_tpu_torch.cli", "clipcap_tpu_torch.cli.serve",
+                   "clipcap_tpu_torch.tools.serving_latency_curve"]
 # weights in, captions out: beam, loaders, CLIP scoring, metrics and the CLIs
 INFER_MODULES = ["clipcap_tpu_torch.decode.beam", "clipcap_tpu_torch.tokenizers.clip_bpe",
                  "clipcap_tpu_torch.models.clip_text", "clipcap_tpu_torch.eval.clip_scoring",

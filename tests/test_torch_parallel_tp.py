@@ -2,7 +2,10 @@
 model axis of 1, 2 and 4 gloo processes, and data x model = 2 x 2, against
 the unsharded port and JAX on the same weights. Tolerances: f32 logits
 1e-5 relative; greedy and sampled tokens (generate, and the serving
-engine's ring decode) exact. The layout: rank r's shard of every weight
+engine's ring decode) exact. In bf16 at model 2, with seeded nonzero
+biases, against JAX's `enable_tensor_parallel(2)` layout over two virtual
+CPU devices: logits within BF16_STEPS bf16 steps (2^-8) of their scale,
+greedy tokens equal but where JAX's own top-2 gap is within that bound. The layout: rank r's shard of every weight
 equals, transposed to [in, out], the shard that
 `jax.device_put(params, gptj_decode_shardings(mesh, params).params)`
 places on device r. The refusals: an unknown parameter, a rank mismatch,
@@ -32,6 +35,8 @@ from clipcap_tpu_torch.parallel.tp import tp_axes
 from clipcap_tpu_torch.tools.dryrun_multichip import run_spawned
 
 LAYOUTS = [(1, 1), (1, 2), (1, 4), (2, 2)]  # (data, model)
+BF16_STEP = 2.0 ** -8
+BF16_STEPS = 4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,8 +51,8 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{(data, model): [each rank's results]}, and the unsharded port's
-    results under None."""
+    """{(data, model): [each rank's results]}, the unsharded port's results
+    under None, and the bf16 model-2 run's under "bf16"."""
     out = tmp_path_factory.mktemp("tp")
     got = {None: W.tp_cases(GPTJ(TC.GPTJConfig(**W.GPTJ_TP), device="cpu", seed=0))}
     for world in (1, 2, 4):
@@ -55,6 +60,7 @@ def runs(tmp_path_factory):
     for data, model in LAYOUTS:
         got[(data, model)] = [W.load(out, f"tp_{data}x{model}", data * model, r)
                               for r in range(data * model)]
+    got["bf16"] = [W.load(out, "tp_bf16_1x2", 2, r) for r in range(2)]
     return got
 
 
@@ -89,6 +95,63 @@ def test_tp_greedy_equals_jax(runs, layout):
     want = jgenerate(JGJ, _jax_params(), JC.GPTJConfig(**W.GPTJ_TP),
                      jnp.asarray(W.tp_inputs().numpy()), JSettings(max_new_tokens=10, greedy=True))
     np.testing.assert_array_equal(runs[layout][0]["greedy"].numpy(), np.asarray(want["tokens"]))
+
+
+@pytest.fixture(scope="module")
+def jax_bf16():
+    """JAX's bf16 GPT-J laid out as `bundle.enable_tensor_parallel(2)` lays
+    it: params device_put by gptj_decode_shardings over a (1, 2) mesh of
+    virtual CPU devices, the cache constrained to it."""
+    sd = {k: convert.to_numpy(v) for k, v in W.tp_bf16_model().state_dict().items()}
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(a.view(jnp.bfloat16)),
+                                    convert.gptj_params(sd, W.GPTJ_TP["n_layer"]))
+    mesh = jmake_mesh(JMeshSpec(data=1, model=2), devices=jax.devices()[:2])
+    sh = jshardings(mesh, params)
+    cfg = JC.GPTJConfig(**W.GPTJ_TP)
+    prefix = jnp.asarray(W.tp_inputs().numpy()).astype(jnp.bfloat16)
+    params = jax.device_put(params, sh.params)
+    logits = jax.jit(JGJ.apply, static_argnums=1)(params, cfg, prefix)
+    prefill = jax.jit(JGJ.prefill, static_argnums=1)(
+        params, cfg, prefix, sh.constrain_cache(JGJ.init_cache(cfg, 4, 8, jnp.bfloat16)))[0]
+    prefill = prefill[:, -1:]  # the port's prefill gives the last position's logits
+    greedy = jgenerate(JGJ, params, cfg, prefix, JSettings(max_new_tokens=10, greedy=True),
+                       cache_constraint=sh.constrain_cache)["tokens"]
+    return dict(params=params, cfg=cfg, prefix=prefix, logits=logits, prefill=prefill,
+                greedy=np.asarray(greedy))
+
+
+@pytest.mark.parametrize("case", ["logits", "prefill"])
+def test_tp_bf16_logits_match_jax_tensor_parallel(runs, jax_bf16, case):
+    want = np.asarray(jax_bf16[case].astype(jnp.float32))
+    tol = BF16_STEPS * BF16_STEP * float(np.abs(want).max())
+    for rank_res in runs["bf16"]:
+        got = rank_res[case].float().numpy()
+        assert got.shape == want.shape
+        err = float(np.abs(got - want).max())
+        assert err <= tol, f"{case}: max abs err {err:.4g} > {BF16_STEPS} bf16 steps {tol:.4g}"
+
+
+def _jax_gap(jax_bf16, row: int, tokens) -> tuple:
+    """JAX's top-2 gap and logit scale at the step after `tokens` on row
+    `row`, from its full bf16 forward over the prefix and those tokens."""
+    params, cfg = jax_bf16["params"], jax_bf16["cfg"]
+    embeds = jnp.take(params["wte"], jnp.asarray(tokens, jnp.int32), axis=0)
+    x = jnp.concatenate([jax_bf16["prefix"][row], embeds])[None]
+    lg = np.asarray(JGJ.apply(params, cfg, x)[0, -1].astype(jnp.float32))
+    top2 = np.sort(lg)[-2:]
+    return float(top2[1] - top2[0]), float(np.abs(lg).max())
+
+
+def test_tp_bf16_greedy_matches_jax_tensor_parallel(runs, jax_bf16):
+    want = jax_bf16["greedy"]
+    for rank_res in runs["bf16"]:
+        got = rank_res["greedy"].numpy()
+        for row in range(len(want)):
+            diff = np.flatnonzero(got[row] != want[row])
+            if diff.size:
+                s = int(diff[0])
+                gap, scale = _jax_gap(jax_bf16, row, want[row, :s])
+                assert gap <= BF16_STEPS * BF16_STEP * scale, (row, s, gap)
 
 
 def _jax_path(name: str):

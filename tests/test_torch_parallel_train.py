@@ -9,7 +9,8 @@ logits and gradients equal GPT2.forward's at 1e-5. The ZeRO layout: rank
 r's shard of each master (and of its Adam moments) equals, in JAX's
 layout, the shard `jax.device_put(params, param_shardings(params, mesh,
 zero=True))` places on device r. A ZeRO checkpoint equals the plain run's
-and loads into the plain trainer. The refusals: layers not divisible by
+and loads into the plain trainer; a JAX TrainState consolidated by JAX
+restores into ZeRO shards as the chunks of a plain restore. The refusals: layers not divisible by
 `pipe`, a batch not divisible by n_micro, and cli.train asked for more
 ranks than exist (JAX's ValueError).
 """
@@ -25,6 +26,7 @@ from clipcap_tpu.core import config as JC
 from clipcap_tpu.core.mesh import MeshSpec as JMeshSpec
 from clipcap_tpu.core.mesh import make_mesh as jmake_mesh
 from clipcap_tpu.parallel.sharding import param_shardings as jparam_shardings
+from clipcap_tpu.train import checkpoints as JCK
 from clipcap_tpu.train import train_step as JTS
 from clipcap_tpu_torch import convert
 from clipcap_tpu_torch.core import config as TC
@@ -49,12 +51,41 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
+def _jax_state(path) -> str:
+    """A JAX TrainState of the GPT2_TRAIN captioner (the port's seed-0
+    weights) with seeded Adam moments at step 3, saved by JAX and written
+    out by its consolidate: the directory the ranks resume from."""
+    cap = JC.CaptionerConfig(lm_type="gpt2", mapper=JC.MapperConfig(**W.MAPPER_TRAIN))
+    lm = JC.GPT2Config(**W.GPT2_TRAIN)
+    model = Captioner(TC.CaptionerConfig(lm_type="gpt2", mapper=TC.MapperConfig(**W.MAPPER_TRAIN)),
+                      TC.GPT2Config(**W.GPT2_TRAIN), device="cpu", seed=0)
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(np.array(a)),
+                                    convert.captioner_params(model))
+    state, _ = JTS.create_train_state(jax.random.PRNGKey(0), cap, lm, JC.TrainConfig(**W.TRAIN),
+                                      params=params)
+    rng = np.random.default_rng(9)
+    train = state.opt_state.inner_states["train"]
+    adam, rest, sched = train.inner_state
+    draw = lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32))  # noqa: E731
+    adam = adam._replace(count=jnp.int32(3), mu=jax.tree_util.tree_map(draw, adam.mu),
+                         nu=jax.tree_util.tree_map(lambda a: jnp.abs(draw(a)), adam.nu))
+    inner = dict(state.opt_state.inner_states,
+                 train=train._replace(inner_state=(adam, rest, sched._replace(count=jnp.int32(3)))))
+    state = state._replace(opt_state=state.opt_state._replace(inner_states=inner),
+                           step=jnp.int32(3))
+    JCK.save_checkpoint(str(path), state, cap, lm, JC.TrainConfig(**W.TRAIN))
+    JCK.consolidate(str(path), str(path / checkpoints.PARAMS_FILE))
+    return str(path)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("train")
-    got = {None: {name: W.train_run(**kw) for name, kw in CASES.items()}, "out": out}
+    jax_state = _jax_state(out / "jax_state")
+    got = {None: {name: W.train_run(**kw) for name, kw in CASES.items()}, "out": out,
+           "jax_state": jax_state}
     for world in WORLDS:
-        run_spawned(W.train_worker, world, (str(out),), timeout=120, workdir=out)
+        run_spawned(W.train_worker, world, (str(out), jax_state), timeout=120, workdir=out)
         got[world] = [W.load(out, "train", world, r) for r in range(world)]
     return got
 
@@ -236,6 +267,31 @@ def test_zero_checkpoint_is_the_plain_one_and_resumes_plain(runs, world, tmp_pat
     for name, p in state.model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), runs[world][0]["zero"]["params"][name]
                                    .numpy(), rtol=0, atol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_zero_state_resumes_a_jax_train_state(runs, world):
+    """A JAX TrainState's .npz restored into ZeRO shards: each rank holds
+    its chunk of what a plain restore holds, masters and moments."""
+    lm = TC.GPT2Config(**W.GPT2_TRAIN)
+    cap = TC.CaptionerConfig(lm_type="gpt2", mapper=TC.MapperConfig(**W.MAPPER_TRAIN))
+    template, _ = create_train_state(1, cap, lm, TC.TrainConfig(**W.TRAIN),
+                                     model=Captioner(cap, lm, device="cpu", seed=1),
+                                     device="cpu")
+    plain = checkpoints.restore_checkpoint(runs["jax_state"], template)
+    params = dict(plain.model.named_parameters())
+    names = [n for n, keep in plain.model.trainable_filter().items() if keep]
+    want = {"masters": [params[n].detach() for n in names], "mu": plain.opt_state.mu,
+            "nu": plain.opt_state.nu}
+    for r, rank_res in enumerate(runs[world]):
+        got = rank_res["jax_resume"]
+        assert got["step"] == 3 and sorted(got["axes"]) == sorted(names)
+        assert any(a is not None for a in got["axes"].values()) or world == 1
+        for key, tensors in want.items():
+            for name, t in zip(names, tensors):
+                axis = got["axes"][name]
+                part = t if axis is None else t.chunk(world, dim=axis)[r]
+                assert torch.equal(got[key][name], part), (key, name, r)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -167,11 +167,43 @@ def tp_cases(model, cache_constraint=None) -> dict:
     return res
 
 
+def tp_bf16_model():
+    """GPTJ_TP in bf16 with seeded biases: the init's are zero, and with a
+    zero b_out the place where it is added cannot show."""
+    from clipcap_tpu_torch.models.gptj import GPTJ
+
+    model = GPTJ(TC.GPTJConfig(**GPTJ_TP), device="cpu", seed=0)
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias") and "ln" not in name:
+                p.copy_(torch.from_numpy(rng.normal(0.0, 0.5, p.shape).astype(np.float32)))
+    return model.to(torch.bfloat16)
+
+
+def tp_bf16_cases(model, cache_constraint=None) -> dict:
+    from clipcap_tpu_torch.decode.engine import GenerationSettings, generate
+
+    prefix = tp_inputs().to(torch.bfloat16)
+    with torch.no_grad():
+        res = {"logits": model(prefix),
+               "prefill": model.prefill(prefix, model.init_cache(4, 8))[0]}
+    res["greedy"] = generate(model, prefix, GenerationSettings(max_new_tokens=10, greedy=True),
+                             device="cpu", cache_constraint=cache_constraint)["tokens"]
+    return res
+
+
 def tp_worker(out) -> None:
     from clipcap_tpu_torch.models.gptj import GPTJ
     from clipcap_tpu_torch.parallel.tp import apply_gptj_decode_shardings, gptj_decode_shardings
 
     world = dist.get_world_size()
+    if world == 2:  # bf16 at model 2, held against JAX's enable_tensor_parallel(2)
+        mesh = make_mesh(MeshSpec(data=1, model=2), device_type="cpu")
+        gptj = tp_bf16_model()
+        sh = gptj_decode_shardings(mesh, gptj)
+        gptj.shard_heads(sh.model_group)
+        _save(out, "tp_bf16_1x2", tp_bf16_cases(gptj, sh.constrain_cache))
     layouts = [(1, world)] + ([(2, 2)] if world == 4 else [])
     for data, model_axis in layouts:
         mesh = make_mesh(MeshSpec(data=data, model=model_axis), device_type="cpu")
@@ -290,7 +322,28 @@ def pp_inputs():
     return embeds, mask
 
 
-def train_worker(out) -> None:
+def zero_resume(mesh, path: str) -> dict:
+    """The checkpoint at `path` restored into a ZeRO train state of the
+    GPT2_TRAIN captioner: the step and, by name, this rank's master and
+    moment shards with their axes."""
+    from clipcap_tpu_torch.models.captioner import Captioner
+    from clipcap_tpu_torch.train.checkpoints import restore_checkpoint
+    from clipcap_tpu_torch.train.train_step import create_train_state
+
+    lm_cfg = TC.GPT2Config(**GPT2_TRAIN)
+    cap_cfg = TC.CaptionerConfig(lm_type="gpt2", mapper=TC.MapperConfig(**MAPPER_TRAIN))
+    template, _ = create_train_state(5, cap_cfg, lm_cfg, TC.TrainConfig(**TRAIN),
+                                     model=Captioner(cap_cfg, lm_cfg, device="cpu", seed=5),
+                                     device="cpu", mesh=mesh, zero=True)
+    state = restore_checkpoint(path, template)
+    names = state.shards.names
+    return {"step": int(state.step), "axes": dict(zip(names, state.shards.axes)),
+            "masters": dict(zip(names, [m.clone() for m in state.shards.masters])),
+            "mu": dict(zip(names, [m.clone() for m in state.opt_state.mu])),
+            "nu": dict(zip(names, [m.clone() for m in state.opt_state.nu]))}
+
+
+def train_worker(out, jax_state: str) -> None:
     from clipcap_tpu_torch.models.gpt2 import GPT2
     from clipcap_tpu_torch.parallel.pp import make_gpt2_pp_apply, pp_param_shardings
 
@@ -306,6 +359,7 @@ def train_worker(out) -> None:
            "zero": train_run(data, zero=True, ckpt=str(Path(out) / f"zero_ckpt_w{world}")),
            "zero_acc": train_run(data, zero=True, accumulate=2),
            "int8_prefix": train_run(data, zero=True, int8_prefix=True)})
+    res["jax_resume"] = zero_resume(data, jax_state)  # a JAX TrainState into ZeRO shards
     pipe = make_mesh(MeshSpec(pipe=world), device_type="cpu")
     res["pp_shardings"] = pp_param_shardings(GPT2(TC.GPT2Config(**GPT2_TRAIN), device="cpu"), pipe)
     res["pp"] = train_run(pipe, pipe_micro=2)
