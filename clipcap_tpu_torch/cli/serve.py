@@ -17,11 +17,17 @@ T5 a `tokenizer.json`); the server runs on the card unless `--device cpu`.
 
 `--target_p50_s` picks the slot count from LATENCY_CURVE_P50_S, measured
 on an H100 by tools/serving_latency_curve.py, by JAX's rule.
+
+`--spans_jsonl SPANS` traces the run (utils/profiling.py): when it ends, it
+writes every span as a JSON line (set-up, the engine's chunks, refills and
+harvests, and each request's queued/admit/decode/harvest phases) and prints
+the p50 and p95 of each request phase.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -93,8 +99,9 @@ def serve_shard(
             return min(int(max_request_length), int(settings.max_new_tokens))
         return None
 
-    results = engine.serve([Request(i, i, max_length=cap(i)) for i in range(n)],
-                           prefix_pool=pool, admission=admission)
+    arrived = time.perf_counter_ns()  # the whole shard arrives at once
+    results = engine.serve([Request(i, i, max_length=cap(i), arrival_ns=arrived)
+                            for i in range(n)], prefix_pool=pool, admission=admission)
 
     special = set(getattr(bundle.tokenizer, "all_special_ids", ()))
     with open(out_path, "w") as f:
@@ -140,8 +147,26 @@ def main(argv=None):
     p.add_argument("--stop_token_id", type=int, default=None)
     p.add_argument("--eos_token_id", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--spans_jsonl", default=None,
+                   help="trace the run and write its host spans as JSON lines here when it "
+                        "ends (name, start_ns and end_ns on time.perf_counter_ns, parent, "
+                        "request_id, attributes); prints each request phase's p50 and p95")
     args = p.parse_args(argv)
+    if args.spans_jsonl is None:
+        return _serve_main(args)
+    from ..utils import profiling as P
 
+    with P.tracing() as tracer:
+        n = _serve_main(args)
+    tracer.write_jsonl(args.spans_jsonl)
+    for name, q in tracer.summary().items():
+        if name.startswith("serving.request."):
+            print(f"{name}: p50 {q['p50_s']:.4f} s, p95 {q['p95_s']:.4f} s over {q['count']}")
+    print(f"wrote the spans to {args.spans_jsonl}")
+    return n
+
+
+def _serve_main(args) -> int:
     from .loading import load_captioner_bundle
 
     bundle = load_captioner_bundle(args.checkpoint_path, args.tokenizer_vocab_dir,

@@ -22,6 +22,11 @@ would change no bit (JAX's `_CROSS_FIELDS`). A token-id adapter
 (`lm.takes_token_ids`, the BLIP decoder's decoder_lm) takes an [N, P] int
 prompt, picks its own cache dtype and is fed ids each step (JAX
 beam.py:147-154, :194-197).
+
+With a tracer active (utils/profiling.py), a call records the call-stack
+span `beam.search` and, for each of its max_new_tokens - 1 steps, `beam.step`
+tiled by `beam.step.select` (the log-softmax, the top-k, the gathers and the
+cache reorder) and `beam.step.lm` (the next decode; none in the last step).
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils import profiling as P
 
 
 #: cross-attention / encoder cache fields, with the axis their batch lives on
@@ -86,6 +93,7 @@ def _topk_iter(x: torch.Tensor, k: int):
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
+@P.traced("beam.search")
 @torch.no_grad()
 def beam_search_batched(
     lm,  # LM module implementing the lm/registry protocol
@@ -158,7 +166,11 @@ def beam_search_batched(
     frozen[0] = 0.0
     if n > 1:
         logits, cache = decode_fn(step_input(first_tokens.reshape(-1)), cache)
+    tr = P.active()
     for step in range(1, n):
+        if tr is not None:
+            t0 = P.now_ns()
+            tr.begin("beam.step", t0)
         logp = torch.log_softmax(logits.float() / temp, dim=-1).reshape(n_img, beam_size, vocab)
         logp = torch.where(has_stopped[:, :, None], frozen, logp)
         scores_sum = scores[:, :, None] + logp
@@ -182,8 +194,16 @@ def beam_search_batched(
             cache = _reorder_cache_tail(cache, global_source, p_len)
         if stop_token_id is not None:
             has_stopped = has_stopped | (next_tok == stop_token_id)
+        if tr is not None:
+            t1 = P.now_ns()
+            tr.add("beam.step.select", t0, t1)
         if step + 1 < n:  # the last step's logits would go unused
             logits, cache = decode_fn(step_input(next_tok.reshape(-1)), cache)
+            if tr is not None:
+                t2 = P.now_ns()
+                tr.add("beam.step.lm", t1, t2)
+        if tr is not None:
+            tr.end(t2 if step + 1 < n else t1)
 
     out = {"tokens": tokens.to(torch.int32),
            "seq_lengths": seq_lengths.to(torch.int32),

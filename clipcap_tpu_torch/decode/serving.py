@@ -61,7 +61,6 @@ request for request.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Iterable, Optional
 
 import numpy as np
@@ -69,6 +68,7 @@ import torch
 
 from ..ops import sampling as S
 from ..ops.ring import paste_rows_axis0
+from ..utils import profiling as P
 from .engine import (BIG, GenerationSettings, StepRandomness, _check_filter_method,
                      complete_step, sample_step, uses_fused_step)
 
@@ -78,11 +78,14 @@ class Request:
     """One serving request: a prefix (mapper output) and an optional cap.
 
     `prefix_embeds` is a [P, D] host array, or, when `serve()` is given a
-    `prefix_pool`, an int row index into that device-resident pool."""
+    `prefix_pool`, an int row index into that device-resident pool.
+    `arrival_ns`, on time.perf_counter_ns, stamps when the request arrived:
+    with a tracer active, its wait until the engine pulls it is recorded."""
 
     request_id: Any
     prefix_embeds: Any
     max_length: Optional[int] = None  # per-request new-token cap
+    arrival_ns: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -189,6 +192,7 @@ class ServingEngine:
                 raise ValueError("chunk sizes cannot exceed steps_per_sync")
         else:
             self._chunk_sizes = [self.steps_per_sync]
+        self.stats = None  # the serve call's counters, updated in place while it runs
         self.last_stats = None
         # refill sizes (default powers of two up to refill_size); padding
         # rows land dead, so one size serves any batch up to it. The
@@ -272,11 +276,19 @@ class ServingEngine:
         `st`. Returns [n_steps + 2, B] int32 over all slots (this rank's,
         all-gathered over `data` under data parallelism): each step's
         emitted token (-1 where nothing was emitted), then stopped and
-        nat_stopped."""
+        nat_stopped.
+
+        With a tracer active, each step is tiled by the call-stack spans
+        `serving.step.sample` (sample_step and complete_step),
+        `serving.step.book` (the slots' bookkeeping) and `serving.step.lm`
+        (the embedding, the ring step and its logits' cast)."""
         settings = self.settings
         n = settings.max_new_tokens
         out = []
+        tr = P.active()
         for _ in range(n_steps):
+            if tr is not None:
+                t0 = P.now_ns()
             next_token, alt_token, alt_prob, raw_eos_lp = sample_step(
                 settings, st.last_logits, self._top_k, self._top_p, self._typ_p, st.rand,
                 use_fused_step=self._use_fused_step, counter=st.age, min_len=self._min_len,
@@ -285,6 +297,9 @@ class ServingEngine:
             next_token, completed, over_length, st.stops = complete_step(
                 settings, next_token, alt_token, alt_prob, raw_eos_lp, counter=st.age,
                 max_len=st.max_len, stops=st.stops)
+            if tr is not None:
+                t1 = P.now_ns()
+                tr.add("serving.step.sample", t0, t1)
             suppress = st.stopped | ~st.live | over_length
             emitted = torch.where(suppress, settings.pad_token_id, next_token)
             emit_valid = ~suppress
@@ -299,13 +314,19 @@ class ServingEngine:
             st.age = st.age + (st.live & ~st.stopped)
             st.nat_stopped = st.nat_stopped | (completed & ~st.stopped)
             st.stopped = st.stopped | completed | (st.age >= n)
+            out.append(torch.where(emit_valid, emitted, -1))
+            pos = st.pos + 1 if self._pos_limit is None else (st.pos + 1).clamp(
+                max=self._pos_limit - 1)
+            if tr is not None:
+                t2 = P.now_ns()
+                tr.add("serving.step.book", t1, t2)
             step_in = (emitted[:, None] if self.token_mode
                        else self.lm.embed_tokens(emitted)[:, None, :].to(self.dtype))
             logits, st.cache = self.lm.decode_step_ring(step_in, st.cache, st.pos, st.start)
             st.last_logits = logits.float()
-            st.pos = st.pos + 1 if self._pos_limit is None else (st.pos + 1).clamp(
-                max=self._pos_limit - 1)
-            out.append(torch.where(emit_valid, emitted, -1))
+            if tr is not None:
+                tr.add("serving.step.lm", t2, P.now_ns())
+            st.pos = pos
         out += [st.stopped.long(), st.nat_stopped.long()]
         packed = torch.stack(out).to(torch.int32)
         return packed if self._dp is None else self._dp.gather(packed, axis=1)
@@ -349,6 +370,7 @@ class ServingEngine:
 
     # ---- host loop ------------------------------------------------------------
 
+    @P.traced("serving.warmup")
     def warmup(self, embed_dim: Optional[int] = None) -> "ServingEngine":
         """Run init, every chunk length and every refill size once on dummy
         data: the card's libraries, the kernels' build and the allocator
@@ -369,6 +391,7 @@ class ServingEngine:
             torch.cuda.synchronize(dev)
         return self
 
+    @P.traced("serving.serve")
     def serve(self, requests: Iterable[Request], seed: int = 0, prefix_pool=None,
               on_result=None, admission: str = "fifo",
               admission_lookahead: Optional[int] = None) -> dict:
@@ -378,9 +401,12 @@ class ServingEngine:
         "latency_s": float} with generate's token semantics (the stopping
         token is included; suppressed over-length tokens are not; `stopped`
         means the request completed naturally rather than at the
-        max_new_tokens bound). latency_s is the wall time from slot
-        assignment to the result; the harvest trails the device by up to
+        max_new_tokens bound). latency_s is the time from slot assignment
+        (the dispatch of the request's refill) to the result, on
+        time.perf_counter; the harvest trails the device by up to
         `pipeline_depth` chunks, so compare latencies at one depth.
+        `self.stats` holds the call's counters, updated in place as it runs;
+        `last_stats` the last finished call's.
 
         `seed` seeds the step randomness as generate's `seed` does: with no
         refill a serve draws what generate draws. `prefix_pool`: an optional
@@ -399,8 +425,19 @@ class ServingEngine:
         min(cap, max_new_tokens - 1) + 1 decode steps were dispatched after
         its refill, so it is refilled without waiting for its harvest; its
         tokens still in flight drain into the `pending` map. Natural stops
-        earlier than the cap retire at harvest."""
+        earlier than the cap retire at harvest.
+
+        With a tracer active (utils/profiling.py), the call records the
+        call-stack spans `serving.chunk` (a chunk's dispatch with its queued
+        copy to the host), `serving.refill` (with its block size `r` and
+        `n_real` requests), `serving.harvest_wait`, and per request the
+        intervals `serving.request.queued` (from `arrival_ns`, when given,
+        to the pull from `requests`), `.admit` (to its slot assignment),
+        `.decode` (to the end of the dispatch of the chunk that carries its
+        stop) and `.harvest` (to its result)."""
         settings = self.settings
+        tr = P.active()
+        pulled = {}  # id(request) -> when it was pulled, while tracing
         b, dev = self.slots, self.device
         req_iter = iter(requests)
         buffered: list = []  # look-ahead pulled from req_iter
@@ -417,9 +454,15 @@ class ServingEngine:
             grew = False
             while len(buffered) < n:
                 try:
-                    buffered.append((arrival[0], next(req_iter)))
+                    req = next(req_iter)
                 except StopIteration:
                     break
+                if tr is not None:
+                    t = pulled[id(req)] = P.now_ns()
+                    if req.arrival_ns is not None:
+                        tr.interval("serving.request.queued", req.arrival_ns, t,
+                                    request_id=req.request_id)
+                buffered.append((arrival[0], req))
                 arrival[0] += 1
                 grew = True
             if grew and admission == "length":
@@ -476,6 +519,12 @@ class ServingEngine:
         caps = np.array([req_cap(req) if req is not None else 0 for req in first], np.int64)
         state = self._init(stack_prefixes(first, b), self._to_device(live),
                            self._to_device(caps), seed)
+        now = P.now_ns()
+        if tr is not None:
+            for req in first:
+                if req is not None:
+                    tr.interval("serving.request.admit", pulled.pop(id(req)), now,
+                                request_id=req.request_id)
 
         slot_req = list(first)  # each slot's current Request (None = free)
         harvested = [False] * b  # result recorded; the slot awaits FIFO retirement
@@ -484,7 +533,7 @@ class ServingEngine:
         # stopped output is not taken for the new occupant finishing empty
         slot_gen = [0] * b
         bufs = [[] for _ in range(b)]
-        t_assign = [time.time()] * b
+        t_assign = [now] * b  # perf_counter_ns
         # eager retirement: a slot is guaranteed stopped once
         # steps_dispatched - refill_step >= guarantee (eff_cap)
         steps_dispatched = 0
@@ -513,14 +562,14 @@ class ServingEngine:
             return pending or any(req is not None and not harvested[s]
                                   for s, req in enumerate(slot_req))
 
-        inflight: list = []  # (host outputs, event, generation snapshot)
+        # (host outputs, event, generation snapshot, end of its dispatch in ns)
+        inflight: list = []
         # live_slot_steps counts a slot while the host believes its occupant
         # may still emit: occupancy = live / total slot-steps bounds the real
         # utilization from above
-        stats = {"chunks": {}, "refills": {}, "refill_pad_rows": 0, "steps": 0,
-                 "live_slot_steps": 0, "slot_steps": 0, "harvest_wait_s": 0.0,
-                 "dispatch_s": 0.0, "refill_dispatch_s": 0.0}
-        t_serve0 = time.perf_counter()
+        self.stats = stats = {"chunks": {}, "refills": {}, "refill_pad_rows": 0, "steps": 0,
+                              "live_slot_steps": 0, "slot_steps": 0, "harvest_wait_s": 0.0,
+                              "dispatch_s": 0.0, "refill_dispatch_s": 0.0}
 
         def pick_chunk_len() -> int:
             """The largest ladder chunk that does not cross the next slot's
@@ -544,30 +593,46 @@ class ServingEngine:
             live_now = sum(1 for s in range(b)
                            if slot_req[s] is not None and not harvested[s]
                            and steps_dispatched - refill_step[s] < guarantee[s])
-            t0 = time.perf_counter()
+            t0 = P.now_ns()
+            if tr is not None:
+                tr.begin("serving.chunk", t0)
             packed = self._chunk(state, n)
-            inflight.append((*self._harvestable(packed), list(slot_gen)))
-            stats["dispatch_s"] += time.perf_counter() - t0
+            host, done = self._harvestable(packed)
+            t1 = P.now_ns()
+            if tr is not None:
+                tr.end(t1)
+            inflight.append((host, done, list(slot_gen), t1))
+            stats["dispatch_s"] += (t1 - t0) / 1e9
             steps_dispatched += n
             stats["chunks"][n] = stats["chunks"].get(n, 0) + 1
             stats["steps"] += n
             stats["live_slot_steps"] += live_now * n
             stats["slot_steps"] += b * n
 
-        def finalize(req, buf, t0, nat):
+        def finalize(req, buf, t0, nat, t_stop):
+            """The result of `req`, assigned at t0, whose stop came with the
+            chunk dispatched by t_stop (ns)."""
+            t = P.now_ns()
             results[req.request_id] = res = {"tokens": buf, "length": len(buf),
-                                             "stopped": bool(nat),
-                                             "latency_s": time.time() - t0}
+                                             "stopped": bool(nat), "latency_s": (t - t0) / 1e9}
+            if tr is not None:
+                tr.interval("serving.request.decode", t0, t_stop, request_id=req.request_id)
+                tr.interval("serving.request.harvest", t_stop, t, request_id=req.request_id)
             if on_result is not None:
                 on_result(req.request_id, res)
 
         def harvest_oldest():
-            host, done, sgen = inflight.pop(0)
-            t0 = time.perf_counter()
+            host, done, sgen, t_disp = inflight.pop(0)
+            t0 = P.now_ns()
+            if tr is not None:
+                tr.begin("serving.harvest_wait", t0)
             if done is not None:
                 done.synchronize()
             packed = host.numpy()
-            stats["harvest_wait_s"] += time.perf_counter() - t0
+            t1 = P.now_ns()
+            if tr is not None:
+                tr.end(t1)
+            stats["harvest_wait_s"] += (t1 - t0) / 1e9
             em, stopped, nat = packed[:-2], packed[-2], packed[-1]
             for slot in range(b):
                 g = sgen[slot]
@@ -578,7 +643,7 @@ class ServingEngine:
                         continue
                     bufs[slot].extend(toks)
                     if stopped[slot]:
-                        finalize(req, bufs[slot], t_assign[slot], nat[slot])
+                        finalize(req, bufs[slot], t_assign[slot], nat[slot], t_disp)
                         harvested[slot] = True
                         bufs[slot] = []
                 elif (slot, g) in pending:
@@ -587,7 +652,7 @@ class ServingEngine:
                     req, buf, t0 = pending[(slot, g)]
                     buf.extend(toks)
                     if stopped[slot]:
-                        finalize(req, buf, t0, nat[slot])
+                        finalize(req, buf, t0, nat[slot], t_disp)
                         del pending[(slot, g)]
 
         def do_refills():
@@ -618,7 +683,7 @@ class ServingEngine:
                 batch = [pop_next() for _ in range(n_real)]
                 new_caps = np.array([req_cap(req) for req in batch] + [0] * (r - n_real),
                                     np.int64)
-                now = time.time()
+                now = P.now_ns()
                 for i in range(r):
                     s = fifo_q + i
                     req = batch[i] if i < n_real else None
@@ -633,10 +698,18 @@ class ServingEngine:
                     t_assign[s] = now
                     refill_step[s] = steps_dispatched
                     guarantee[s] = eff_cap(req) if req is not None else 0
-                t0 = time.perf_counter()
+                    if tr is not None and req is not None:
+                        tr.interval("serving.request.admit", pulled.pop(id(req)), now,
+                                    request_id=req.request_id)
+                t0 = P.now_ns()
+                if tr is not None:
+                    tr.begin("serving.refill", t0, r=r, n_real=n_real)
                 self._refill(r, state, stack_prefixes(batch, r), fifo_q,
                              self._to_device(new_caps), n_real)
-                stats["refill_dispatch_s"] += time.perf_counter() - t0
+                t1 = P.now_ns()
+                if tr is not None:
+                    tr.end(t1)
+                stats["refill_dispatch_s"] += (t1 - t0) / 1e9
                 stats["refills"][r] = stats["refills"].get(r, 0) + 1
                 stats["refill_pad_rows"] += r - n_real
                 fifo_q = (fifo_q + r) % b
@@ -651,7 +724,6 @@ class ServingEngine:
                 harvest_oldest()
             elif not unfinished() and not pull(1):
                 break
-        stats["wall_s"] = time.perf_counter() - t_serve0
         stats["occupancy"] = (round(stats["live_slot_steps"] / stats["slot_steps"], 4)
                               if stats["slot_steps"] else None)
         self.last_stats = stats

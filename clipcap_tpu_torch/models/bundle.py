@@ -24,6 +24,10 @@ surface, `lm_decode`, which the samplers, beam search, serving and the
 CLIP-guided tree drive; `forward`, the loss and `embed_text` keep the float
 LM, as in JAX. The int8 module holds its own weights, so there is no
 separate `lm_decode_params`.
+
+With a tracer active (utils/profiling.py), `create`, `enable_int8_decode`,
+`prefix_from_pixels` and `project_prefix` record the call-stack spans
+`bundle.create`, `bundle.int8_quantize`, `bundle.encode` and `bundle.map`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Any, Optional
 import torch
 
 from ..core.config import CaptionerConfig, ViTConfig
+from ..utils import profiling as P
 from .captioner import Captioner
 
 
@@ -60,6 +65,7 @@ class CaptionerBundle:
                              f"{self.device}")
 
     @classmethod
+    @P.traced("bundle.create")
     def create(cls, cap_cfg: CaptionerConfig, lm_cfg, tokenizer,
                vit_cfg: Optional[ViTConfig] = None, *, seed: int = 0, device: str = "cuda",
                dtype=torch.float32) -> "CaptionerBundle":
@@ -128,6 +134,7 @@ class CaptionerBundle:
         self._decode_sharding = "dp"
         return mesh
 
+    @P.traced("bundle.int8_quantize")
     def enable_int8_decode(self) -> "CaptionerBundle":
         """Quantize the LM once for int8 decode (the family's quantize_params:
         models/gpt2, models/gptj or models/t5): int8 weights with
@@ -180,10 +187,12 @@ class CaptionerBundle:
 
     # --- mapper / LM ---------------------------------------------------------------
 
+    @P.traced("bundle.map")
     @torch.no_grad()
     def project_prefix(self, visual_features: torch.Tensor) -> torch.Tensor:
         return self.model.project_prefix(visual_features.to(self.device))
 
+    @P.traced("bundle.encode")
     def prefix_from_pixels(self, pixels: torch.Tensor) -> torch.Tensor:
         return self.project_prefix(self.encode_image(pixels))
 

@@ -5,6 +5,8 @@ library with a plain C interface and loaded with `ctypes`. The build runs
 at first use, from the sources in the checkout, into `build/clipcap_tpu_torch/`
 at the root of the checkout (git-ignored); the library name carries a hash
 of its source, so an edited kernel is rebuilt. Nothing here runs at import.
+With a tracer active (utils/profiling.py), each `nvcc` is recorded as an
+interval `kernels.build` with the kernel's name.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+
+from ...utils import profiling as P
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -51,6 +55,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     (with ptxas's registers, shared memory and spills per kernel) for the
     sources it built; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tr = P.active()
     procs = []
     for name in names:
         out = _target(name)
@@ -58,12 +63,14 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        procs.append((name, out, tmp, P.now_ns(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs = {}
     failed = []
-    for name, out, tmp, proc in procs:
+    for name, out, tmp, t0, proc in procs:
         logs[name], _ = proc.communicate()
+        if tr is not None:
+            tr.interval("kernels.build", t0, P.now_ns(), kernel=name)
         if proc.returncode != 0:
             failed.append(name)
         else:

@@ -1,2 +1,2 @@
-"""Host utilities: metric logging (logging.py), tracing and step timing
+"""Host utilities: metric logging (logging.py), host spans
 (profiling.py), and the TPE sweep optimizer (tpe.py)."""

@@ -1,29 +1,24 @@
-"""The port's host-only dataset tools and profiling helpers against the
-JAX package's (tests/test_aux_tools.py's cases), on the CPU: file_hashes'
-indexes and merged captions, len_distribution's word counts, merge_shards'
-layout, resize_images' PNGs and StepTimer's summary equal JAX's on the same
-inputs; trace() writes a profile on the CPU; tools/profile_decode runs
-both of its paths on a tiny GPT-2 on the CPU."""
+"""The port's host-only dataset tools against the JAX package's
+(tests/test_aux_tools.py's cases), on the CPU: file_hashes' indexes and
+merged captions, len_distribution's word counts, merge_shards' layout and
+resize_images' PNGs equal JAX's on the same inputs; tools/profile_decode
+runs both of its paths on a tiny GPT-2 on the CPU."""
 
 import csv
 import json
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from clipcap_tpu.tools import file_hashes as JFH
 from clipcap_tpu.tools import len_distribution as JLD
 from clipcap_tpu.tools import merge_shards as JMS
 from clipcap_tpu.tools import resize_images as JRI
-from clipcap_tpu.utils import profiling as JPROF
 from clipcap_tpu_torch.data.npy_reader import write_npy_shard
 from clipcap_tpu_torch.tools import file_hashes as TFH
 from clipcap_tpu_torch.tools import len_distribution as TLD
 from clipcap_tpu_torch.tools import merge_shards as TMS
 from clipcap_tpu_torch.tools import resize_images as TRI
-from clipcap_tpu_torch.utils import profiling as TPROF
 
 
 def _img(path, seed, size=(8, 8)):
@@ -99,32 +94,6 @@ def test_len_distribution_matches_jax(tmp_path):
     assert got == want == {"human": [2, 5], "synthetic": [4]}
     for ext in ("png", "svg"):
         assert (tmp_path / "port" / f"word_count_hist_eval_A.{ext}").exists()
-
-
-def test_step_timer_matches_jax_summary():
-    t = TPROF.StepTimer()
-    x = torch.ones(8, 8)
-    for _ in range(3):
-        with t.step() as h:
-            h["result"] = x @ x
-    t.start()
-    t.stop({"y": [x]})
-    s = t.summary()
-    jt = JPROF.StepTimer()
-    with jt.step() as h:
-        h["result"] = jnp.ones((2, 2))
-    assert sorted(s) == sorted(jt.summary())
-    assert s["steps"] == 4 and s["p50_s"] > 0 and s["steps_per_sec"] > 0
-    assert TPROF.StepTimer().summary() == JPROF.StepTimer().summary() == {}
-
-
-def test_trace_and_annotate_write_a_cpu_profile(tmp_path):
-    with TPROF.trace(str(tmp_path / "prof")):
-        with TPROF.annotate("matmul"):
-            y = torch.ones(16, 16) @ torch.ones(16, 16)
-        TPROF.hard_sync(y)
-    assert list((tmp_path / "prof").glob("*.json"))
-    TPROF.hard_sync(None)  # nothing to wait for
 
 
 @pytest.mark.parametrize("layout", ["prefix_tokens", "legacy"])

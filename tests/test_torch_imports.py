@@ -44,7 +44,7 @@ GPTJ_MODULES = ["clipcap_tpu_torch.models.gptj", "clipcap_tpu_torch.decode.specu
 # T5/T0 (float, int8, ring), its tokenizer and its LM family
 T5_MODULES = ["clipcap_tpu_torch.models.t5", "clipcap_tpu_torch.tokenizers.api",
               "clipcap_tpu_torch.lm.registry"]
-# dataset preprocessing, the data pipeline, the dataset tools and profiling
+# dataset preprocessing, the data pipeline, the dataset tools and the tracer
 PREPROCESS_MODULES = ["clipcap_tpu_torch.core.dtypes", "clipcap_tpu_torch.data.webdataset",
                       "clipcap_tpu_torch.data.native_jpeg", "clipcap_tpu_torch.data.native_loader",
                       "clipcap_tpu_torch.data.pipeline", "clipcap_tpu_torch.utils.profiling",
