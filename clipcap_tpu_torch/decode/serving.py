@@ -35,6 +35,16 @@ On CUDA, filter_method="fused" launches K2 and "fused_step" launches K3
 once per decode step. Nothing in a chunk reads a device value on the host,
 so the launch stream never stalls inside a chunk.
 
+On CUDA, an LM that declares `graph_safe_ring_step` (GPT2Int8: its ring
+step takes the ring index as a device tensor) has the LM part of a step
+(the embedding, the ring step and the logits' cast) captured once as a
+CUDA graph over static buffers and the engine's own ring cache, and
+replayed at every decode step: the same kernels on the same data, issued
+by one launch instead of one per operation. The engine keeps that cache
+for its lifetime (zeroed and prefilled by each serve), so the graph's
+pointers stay valid; the sampler, the bookkeeping and the refills stay
+eager. `stats["graph_steps"]` counts the replayed steps.
+
 Left behind as TPU workarounds: layout pinning, the jitted row gather and
 buffer donation. The sentence-length penalty is rejected (it needs the
 batch-global step counter). Supported LMs: any module with
@@ -232,6 +242,9 @@ class ServingEngine:
         limit = getattr(lm_cfg, "n_positions", None) or getattr(lm_cfg,
                                                                  "max_position_embeddings", None)
         self._pos_limit = None if limit is None else int(limit)
+        self._graphable = (self.device.type == "cuda"
+                           and bool(getattr(lm, "graph_safe_ring_step", False)))
+        self._graph: Optional[_GraphStep] = None  # captured by the first _init
 
     # ---- device steps ---------------------------------------------------------
 
@@ -244,26 +257,41 @@ class ServingEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _fresh_cache(self):
+        cache = self.lm.init_cache(self.slots, self.ring_len, dtype=self.dtype)
+        return cache if self.cache_constraint is None else self.cache_constraint(cache)
+
     def _init(self, prefixes: torch.Tensor, live: torch.Tensor, max_len: torch.Tensor,
               seed: int) -> ServingState:
         """Prefill the first B requests (all slots' rows; this rank keeps
-        its range) into a fresh ring cache."""
+        its range) into a fresh ring cache: a new one, or with the graph
+        step the engine's own, zeroed (the first call captures the step)."""
         n, dev = self.settings.max_new_tokens, self.device
-        cache = self.lm.init_cache(self.slots, self.ring_len, dtype=self.dtype)
-        if self.cache_constraint is not None:
-            cache = self.cache_constraint(cache)
+        if not self._graphable:
+            cache = self._fresh_cache()
+        else:
+            if self._graph is None:
+                with P.span("serving.graph_capture"):
+                    self._graph = _GraphStep(self, self._fresh_cache())
+            cache = self._graph.cache
+            for t in cache:
+                if isinstance(t, torch.Tensor):
+                    t.zero_()
         lo, hi = self._lo, self._hi
         prefixes, live, max_len = prefixes[lo:hi], live[lo:hi], max_len[lo:hi]
         b = hi - lo
         rand = (StepRandomness(seed, dev) if self._dp is None
                 else StepRandomness(seed, dev, row_base=lo, global_rows=self.slots))
         logits, cache = self.lm.prefill(prefixes, cache)
+        last_logits = logits[:, -1].float()
+        if self._graph is not None:  # the graph writes each step's logits there
+            last_logits = self._graph.logits.copy_(last_logits)
 
         def zeros(*shape, dtype=torch.int64):  # one tensor each: refills write in place
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         return ServingState(
-            cache=cache, last_logits=logits[:, -1].float(), start=zeros(b),
+            cache=cache, last_logits=last_logits, start=zeros(b),
             pos=torch.full((b,), self.prompt_len, dtype=torch.int64, device=dev),
             gen_count=zeros(b), age=zeros(b), hist=zeros(b, n),
             hist_valid=zeros(b, n, dtype=torch.bool), stopped=~live,
@@ -281,7 +309,8 @@ class ServingEngine:
         With a tracer active, each step is tiled by the call-stack spans
         `serving.step.sample` (sample_step and complete_step),
         `serving.step.book` (the slots' bookkeeping) and `serving.step.lm`
-        (the embedding, the ring step and its logits' cast)."""
+        (the embedding, the ring step and its logits' cast, or the graph
+        step's copy-in and replay)."""
         settings = self.settings
         n = settings.max_new_tokens
         out = []
@@ -320,16 +349,27 @@ class ServingEngine:
             if tr is not None:
                 t2 = P.now_ns()
                 tr.add("serving.step.book", t1, t2)
-            step_in = (emitted[:, None] if self.token_mode
-                       else self.lm.embed_tokens(emitted)[:, None, :].to(self.dtype))
-            logits, st.cache = self.lm.decode_step_ring(step_in, st.cache, st.pos, st.start)
-            st.last_logits = logits.float()
+            if self._graph is not None:
+                st.cache = self._graph.replay(emitted, st.cache, st.pos, st.start)
+            else:
+                st.last_logits, st.cache = self._lm_step(emitted, st.cache, st.pos, st.start)
             if tr is not None:
                 tr.add("serving.step.lm", t2, P.now_ns())
             st.pos = pos
         out += [st.stopped.long(), st.nat_stopped.long()]
         packed = torch.stack(out).to(torch.int32)
         return packed if self._dp is None else self._dp.gather(packed, axis=1)
+
+    def _lm_step(self, tokens: torch.Tensor, cache, pos: torch.Tensor, start: torch.Tensor,
+                 index: Optional[torch.Tensor] = None):
+        """The LM part of a decode step: the emitted tokens [B] embedded (fed
+        as ids to a token-id adapter), the ring step, and its logits in f32.
+        `index` is the graph step's device ring index."""
+        step_in = (tokens[:, None] if self.token_mode
+                   else self.lm.embed_tokens(tokens)[:, None, :].to(self.dtype))
+        kw = {} if index is None else {"index": index}
+        logits, cache = self.lm.decode_step_ring(step_in, cache, pos, start, **kw)
+        return logits.float(), cache
 
     @torch.no_grad()
     def _refill(self, r: int, st: ServingState, prefixes: torch.Tensor, q: int,
@@ -568,8 +608,9 @@ class ServingEngine:
         # may still emit: occupancy = live / total slot-steps bounds the real
         # utilization from above
         self.stats = stats = {"chunks": {}, "refills": {}, "refill_pad_rows": 0, "steps": 0,
-                              "live_slot_steps": 0, "slot_steps": 0, "harvest_wait_s": 0.0,
-                              "dispatch_s": 0.0, "refill_dispatch_s": 0.0}
+                              "graph_steps": 0, "live_slot_steps": 0, "slot_steps": 0,
+                              "harvest_wait_s": 0.0, "dispatch_s": 0.0,
+                              "refill_dispatch_s": 0.0}
 
         def pick_chunk_len() -> int:
             """The largest ladder chunk that does not cross the next slot's
@@ -606,6 +647,8 @@ class ServingEngine:
             steps_dispatched += n
             stats["chunks"][n] = stats["chunks"].get(n, 0) + 1
             stats["steps"] += n
+            if self._graph is not None:
+                stats["graph_steps"] += n
             stats["live_slot_steps"] += live_now * n
             stats["slot_steps"] += b * n
 
@@ -728,3 +771,50 @@ class ServingEngine:
                               if stats["slot_steps"] else None)
         self.last_stats = stats
         return results
+
+
+class _GraphStep:
+    """A ServingEngine's LM step captured once as a CUDA graph, PyTorch's
+    recipe: warm-up runs on a side stream, then the capture on it. The
+    graph reads static buffers (the emitted tokens, `pos`, `start` and the
+    ring index, [B] and 0-d int64) and `cache`, the engine's ring cache for
+    its lifetime, and writes the step's f32 logits into `logits` [B, V],
+    which the engine holds as the slots' `last_logits` (refills paste their
+    rows there)."""
+
+    WARMUP_STEPS = 2
+
+    @torch.no_grad()
+    def __init__(self, engine: ServingEngine, cache):
+        b, dev = engine._hi - engine._lo, engine.device
+        self.cache = cache
+        self.tokens = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.pos = torch.full((b,), engine.prompt_len, dtype=torch.int64, device=dev)
+        self.start = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.index = torch.full((), engine.prompt_len, dtype=torch.int64, device=dev)
+        self.graph, self.logits = self._capture(
+            lambda: engine._lm_step(self.tokens, cache, self.pos, self.start, self.index)[0], dev)
+
+    @classmethod
+    def _capture(cls, step, dev):
+        """(the graph of `step()`, its output buffer)."""
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(cls.WARMUP_STEPS):
+                step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = step()
+        return graph, out
+
+    def replay(self, tokens: torch.Tensor, cache, pos: torch.Tensor, start: torch.Tensor):
+        """One step from `cache.index`: copy the inputs in, replay; returns
+        the cache with its host index advanced."""
+        self.tokens.copy_(tokens)
+        self.pos.copy_(pos)
+        self.start.copy_(start)
+        self.index.fill_(cache.index)
+        self.graph.replay()
+        return cache._replace(index=cache.index + 1)

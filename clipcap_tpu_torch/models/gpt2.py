@@ -326,6 +326,9 @@ class GPT2Int8(nn.Module):
     # prefill): speculative verification steps token by token, as JAX's
     # gpt2_int8 has no _forward_cached
     chunked_forward = False
+    # decode_step_ring takes the ring index as a device tensor and reads no
+    # value on the host: the serving engine captures it as a CUDA graph
+    graph_safe_ring_step = True
 
     def __init__(self, cfg: GPT2Config, *, device="cuda"):
         super().__init__()
@@ -363,18 +366,24 @@ class GPT2Int8(nn.Module):
                            index=0)
 
     @staticmethod
-    def _write_kv(cache, layer: int, slot: int, k: torch.Tensor, v: torch.Tensor):
+    def _write_kv(cache, layer: int, slot, k: torch.Tensor, v: torch.Tensor):
         """Quantize k/v [B, T, H, Dh] per (row, position, head) and write them
-        head-major at time positions [slot, slot + T) of `layer`, in place."""
+        head-major at time positions [slot, slot + T) of `layer`, in place.
+        `slot` is a host int, or for one position a 0-d tensor on the device
+        (the ring step's device index)."""
         t = k.shape[1]
         for slab, scales, y in ((cache.k, cache.ks, k), (cache.v, cache.vs, v)):
             y8, s = quantize_rows(y)
-            slab[layer, :, :, slot: slot + t] = y8.transpose(1, 2)
-            scales[layer, :, :, slot: slot + t] = s[..., 0].transpose(1, 2)
+            if isinstance(slot, torch.Tensor):
+                at = slot.reshape(1)
+                slab[layer].index_copy_(2, at, y8.transpose(1, 2))
+                scales[layer].index_copy_(2, at, s[..., 0].transpose(1, 2))
+            else:
+                slab[layer, :, :, slot: slot + t] = y8.transpose(1, 2)
+                scales[layer, :, :, slot: slot + t] = s[..., 0].transpose(1, 2)
 
     def _forward_cached(self, inputs_embeds: torch.Tensor, cache: Int8KVCache, fresh: bool,
-                        full_logits: bool,
-                        ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        full_logits: bool, ring: Optional[tuple] = None
                         ) -> Tuple[torch.Tensor, Int8KVCache]:
         b, t, d = inputs_embeds.shape
         idx, a_len = cache.index, cache.k.shape[3]
@@ -383,8 +392,9 @@ class GPT2Int8(nn.Module):
         if ring is not None:
             if t != 1:
                 raise ValueError("ring mode is decode-only (t == 1)")
-            pos, start = ring
-            wslot, bias = ring_layout(idx, a_len, start)  # [B, maxT]
+            pos, start, index = ring
+            # [B, maxT]; a device index places the write and the window on the card
+            wslot, bias = ring_layout(idx if index is None else index, a_len, start)
             x = x + self.wpe[pos.long()][:, None]
         else:
             if idx + t > a_len:
@@ -430,10 +440,17 @@ class GPT2Int8(nn.Module):
         return logits[:, -1], cache
 
     def decode_step_ring(self, token_embed: torch.Tensor, cache: Int8KVCache, pos: torch.Tensor,
-                         start: torch.Tensor) -> Tuple[torch.Tensor, Int8KVCache]:
-        """int8 ring-cache decode step (GPT2.decode_step_ring's contract)."""
+                         start: torch.Tensor, index: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, Int8KVCache]:
+        """int8 ring-cache decode step (GPT2.decode_step_ring's contract).
+        `index`, a 0-d int64 tensor on the cache's device equal to
+        cache.index, gives the step its write slot and window bias from the
+        device instead of the host int: the same logits and cache bit for
+        bit, from a step whose launches do not change with the index, so a
+        CUDA graph captured once replays it at every step. The returned
+        cache's host index advances either way."""
         logits, cache = self._forward_cached(token_embed, cache, fresh=False, full_logits=False,
-                                             ring=(pos, start))
+                                             ring=(pos, start, index))
         return logits[:, -1], cache
 
     @staticmethod

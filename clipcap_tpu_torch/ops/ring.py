@@ -15,17 +15,20 @@ import torch
 from .attention import NEG_INF
 
 
-def ring_timesteps(idx: int, a_len: int, device="cuda") -> torch.Tensor:
+def ring_timesteps(idx, a_len: int, device="cuda") -> torch.Tensor:
     """gp[p]: the global timestep whose K/V ring position p holds
-    (negative for never-written positions). [T] int64."""
+    (negative for never-written positions). [T] int64. `idx` is the host
+    int or a 0-d int64 tensor on `device`: the same gp either way."""
     # floor-mod (% on integer tensors), not torch.fmod: before the first
     # wrap idx - p is negative for never-written positions, and a truncated
     # remainder would give them gp == p >= start, attending zero K/V
     return idx - torch.remainder(idx - torch.arange(a_len, device=device), a_len)
 
 
-def ring_layout(idx: int, a_len: int, ring_start: torch.Tensor):
-    """Ring write slot (a Python int) and the per-row additive bias [B, T].
+def ring_layout(idx, a_len: int, ring_start: torch.Tensor):
+    """Ring write slot and the per-row additive bias [B, T]. For a host int
+    `idx` the slot is a Python int; for a 0-d tensor `idx` (the device
+    index), a 0-d tensor on its device, and no value is read on the host.
 
     Row b may attend ring position p iff gp(p) >= ring_start[b], its
     request's first claimed timestep; the current token's write at `idx`

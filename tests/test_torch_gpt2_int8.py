@@ -185,6 +185,39 @@ def test_decode_step_ring_and_scatter_refill_match_jax(pair):
     assert tc.index == int(jc.index) == p + 9  # past maxT: the ring wrapped
 
 
+@pytest.mark.parametrize("refill_at", [3, 9], ids=["refill_before_wrap", "refill_after_wrap"])
+def test_decode_step_ring_device_index_is_bit_equal_to_the_host_index(pair, refill_at):
+    """decode_step_ring with `index` (the ring index as a device tensor, as
+    serving's CUDA graph replays it) gives the host-index step's logits and
+    cache bit for bit: three rows on a 10-slot ring, a one-row
+    scatter_refill, 18 steps that wrap the ring twice."""
+    _, _, model = pair
+    rng = np.random.default_rng(2)
+    p, a_len, b = 4, 10, 3
+    x = _torch(rng.normal(size=(b, p, 64)).astype(np.float32))
+    with torch.no_grad():
+        _, host = model.prefill(x, model.init_cache(b, a_len))
+    dev = host._replace(**{f: getattr(host, f).clone() for f in ("k", "v", "ks", "vs")})
+    pos, start = torch.full((b,), p), torch.zeros(b, dtype=torch.int64)
+    for s in range(18):
+        with torch.no_grad():
+            if s == refill_at:
+                y = _torch(rng.normal(size=(1, p, 64)).astype(np.float32))
+                _, small = model.prefill(y, model.init_cache(1, p))
+                host = model.scatter_refill(host, small, 1)
+                dev = model.scatter_refill(dev, small, 1)
+                pos[1], start[1] = p, host.index - p
+            e = _torch(rng.normal(size=(b, 1, 64)).astype(np.float32))
+            want, host = model.decode_step_ring(e, host, pos, start)
+            got, dev = model.decode_step_ring(e, dev, pos, start, index=torch.tensor(dev.index))
+        assert dev.index == host.index
+        assert torch.equal(got, want), f"step {s}"
+        for f in ("k", "v", "ks", "vs"):
+            assert torch.equal(getattr(dev, f), getattr(host, f)), (s, f)
+        pos = pos + 1
+    assert host.index == p + 18 > 2 * a_len
+
+
 def test_golden_greedy_int8():
     lm_cfg = JC.GPT2Config(**GOLDEN["lm_cfg"])
     cap_cfg = JC.CaptionerConfig(lm_type="gpt2", mapper=JC.MapperConfig(**GOLDEN["map_cfg"]))

@@ -53,6 +53,19 @@ def test_ring_timesteps_and_layout_match_jax(idx):
         assert (bias[:, idx + 1:] < 0).all()
 
 
+@pytest.mark.parametrize("idx", [0, 3, T - 1, T, T + 1, 17, 40])
+def test_ring_layout_takes_the_index_as_a_device_tensor(idx):
+    """The ring step's device index (a 0-d int64 tensor): the same gp, slot
+    and bias as the host int, before, at and across a wrap of the ring."""
+    start = torch.tensor([0, 2, max(idx - 4, 0), idx])
+    at = torch.tensor(idx)
+    assert torch.equal(TR.ring_timesteps(at, T, "cpu"), TR.ring_timesteps(idx, T, "cpu"))
+    wslot, bias = TR.ring_layout(idx, T, start)
+    dslot, dbias = TR.ring_layout(at, T, start)
+    assert isinstance(dslot, torch.Tensor) and dslot.dim() == 0 and int(dslot) == wslot
+    assert torch.equal(dbias, bias)
+
+
 @pytest.mark.parametrize("idx,p", [(5, 5), (7, 5), (12, 5), (30, 4)])
 def test_refill_positions_match_jax(idx, p):
     got = TR.refill_positions(idx, p, T, "cpu")

@@ -28,8 +28,9 @@ from clipcap_tpu.models import gpt2 as JG
 from clipcap_tpu_torch import convert
 from clipcap_tpu_torch.core import config as TC
 from clipcap_tpu_torch.decode import engine as TE
+from clipcap_tpu_torch.decode import serving as TS
 from clipcap_tpu_torch.decode.serving import Request, ServingEngine
-from clipcap_tpu_torch.models.gpt2 import GPT2
+from clipcap_tpu_torch.models.gpt2 import GPT2, quantize_params
 from clipcap_tpu_torch.ops.kernels import fused_sampler as FS
 
 LM = dict(vocab_size=96, n_positions=96, n_embd=32, n_layer=2, n_head=4)
@@ -253,6 +254,66 @@ def test_serving_declared_max_request_length_matches_solo(world):
         eng.serve(_requests(2, seed=1, caps=[3, 9]))
     with pytest.raises(ValueError, match="max_request_length"):
         eng.serve(_requests(1, seed=1))  # no cap: the scan bound 12 > 6
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["gpt2", "gpt2_int8"])
+def test_serving_replays_no_graph_on_the_cpu(int8, world):
+    """The CUDA graph step engages only on the card, for an LM that declares
+    `graph_safe_ring_step`: float GPT-2 does not, GPT2Int8 does, and no
+    engine on the CPU replays a graph (graph_steps 0 across refills and
+    ring wraps). Float GPT-2's tokens are still each request's alone."""
+    _, model = world
+    lm = quantize_params(model) if int8 else model
+    assert getattr(lm, "graph_safe_ring_step", False) is int8
+    reqs = _requests(7, seed=2, caps=[3, 9, 5, 12, 7, 4, 2])
+    eng = _engine(lm, dtype=torch.bfloat16 if int8 else None)
+    got = eng.serve(reqs)
+    assert eng.last_stats["graph_steps"] == 0 < eng.last_stats["steps"]
+    assert eng.last_stats["refills"] and eng._graph is None
+    if not int8:
+        for req in reqs:
+            assert (got[req.request_id]["tokens"], got[req.request_id]["stopped"]) == \
+                _solo(model, req), req.request_id
+
+
+def test_serving_graph_step_host_side_matches_eager(world, monkeypatch):
+    """The graph step's host side, on the CPU: the capture is swapped for a
+    stand-in whose replay reruns the captured step eagerly into its output
+    buffer. The engine that replays it (its own ring cache, kept across
+    serve calls; inputs copied into static buffers; the ring index filled
+    from the host; refills pasting into the step's logits buffer) serves
+    exactly the eager engine's sampled tokens over two serve calls with
+    refills and ring wraps, and counts every decode step as a graph step."""
+
+    class StandIn:
+        def __init__(self, step):
+            self.step, self.out = step, step()
+
+        def replay(self):
+            self.out.copy_(self.step())
+
+    def capture(cls, step, dev):
+        graph = StandIn(step)
+        return graph, graph.out
+
+    monkeypatch.setattr(TS._GraphStep, "_capture", classmethod(capture))
+    _, model = world
+    lm = quantize_params(model)
+    settings = TE.GenerationSettings(max_new_tokens=12, eos_token_id=EOS, top_p=0.9,
+                                     repetition_penalty=1.2, temperature=0.9)
+    eager = _engine(lm, settings, dtype=torch.bfloat16, steps_per_sync=4)
+    graphed = _engine(lm, settings, dtype=torch.bfloat16, steps_per_sync=4)
+    graphed._graphable = True  # as on the card
+    graphed.warmup()
+    cache = graphed._graph.cache
+    for seed, caps in ((3, [3, 9, 5, 12, 7, 4, 2]), (4, [6, 2, 11, 4, 8, 3])):
+        reqs = _requests(len(caps), seed=seed, caps=caps)
+        want = eager.serve(reqs, seed=seed)
+        _same(graphed.serve(reqs, seed=seed), want)
+        st = graphed.last_stats
+        assert st["graph_steps"] == st["steps"] > graphed.ring_len and st["refills"]
+        assert eager.last_stats["graph_steps"] == 0
+    assert graphed._graph.cache is cache  # one cache, one capture, for the engine's life
 
 
 def test_serving_rejections(world):
