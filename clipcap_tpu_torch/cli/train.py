@@ -128,7 +128,8 @@ def build_configs(args):
         lm_cfg = type(lm_cfg).from_json(Path(args.lm_config_json).read_text())
     mapper_cfg = MapperConfig(
         dim_clip=args.prefix_size,
-        dim_embedding=getattr(lm_cfg, "n_embd", getattr(lm_cfg, "d_model", None)),
+        dim_embedding=next((getattr(lm_cfg, n) for n in ("n_embd", "d_model", "hidden_size")
+                            if hasattr(lm_cfg, n)), None),
         prefix_length=args.prefix_length,
         clip_length=args.clip_prefix_length,
         num_layers=args.num_layers,

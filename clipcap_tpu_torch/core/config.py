@@ -6,6 +6,9 @@ and `TrainConfig` from
 clipcap_tpu/core/config.py, with the same fields,
 defaults and JSON round trip (a test holds the two in step). The port keeps
 its own copies because the JAX package's `core/__init__.py` imports JAX.
+
+`DeepseekV3Config` is the port's own: the JAX package has no DeepSeek-V3
+LM, so there is no copy to hold it against.
 """
 
 from __future__ import annotations
@@ -128,6 +131,47 @@ class T5Config(_JsonMixin):
 
 
 @dataclasses.dataclass(frozen=True)
+class DeepseekV3Config(_JsonMixin):
+    """DeepSeek-V3's decoder (arXiv:2412.19437; HF `model_type`
+    "deepseek_v3"), under its config.json names: multi-head latent
+    attention, a few leading dense SwiGLU layers, then sigmoid-routed
+    experts with shared experts. The defaults are Moonlight-16B-A3B's
+    (huggingface.co/moonshotai/Moonlight-16B-A3B, config.json). The port
+    runs `q_lora_rank` None (a plain query projection), `n_group` 1 and
+    no rope scaling, as that config has them."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264  # the dense layers' SwiGLU width
+    moe_intermediate_size: int = 1408  # each routed expert's SwiGLU width
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2  # one SwiGLU of n_shared * moe_intermediate_size
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    n_group: int = 1
+    topk_group: int = 1
+    max_position_embeddings: int = 8192
+
+    @classmethod
+    def variant(cls, name: str) -> "DeepseekV3Config":
+        if name in ("moonshotai/Moonlight-16B-A3B", "Moonlight-16B-A3B", "moonlight",
+                    "deepseek_v3"):
+            return cls()
+        raise ValueError(f"unknown DeepSeek-V3 variant {name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ViTConfig(_JsonMixin):
     """Vision transformer config, CLIP style ("clip") or BLIP/timm style ("blip")."""
 
@@ -212,7 +256,7 @@ class CaptionerConfig(_JsonMixin):
     """Top-level ClipCap captioner = visual encoder + mapper + LM
     (reference model.py:25-78, train.py:167-189)."""
 
-    lm_type: str = "gpt2"  # gpt2 | gptj | t5/t0
+    lm_type: str = "gpt2"  # gpt2 | gptj | t5/t0 | deepseek_v3/moonlight
     lm_variant: str = "gpt2"
     visual_encoder_type: str = "BLIP"  # BLIP | CLIP | "none" (precomputed prefixes)
     visual_encoder_variant: str = "ViT-B"

@@ -261,6 +261,7 @@ class ServingEngine:
         cache = self.lm.init_cache(self.slots, self.ring_len, dtype=self.dtype)
         return cache if self.cache_constraint is None else self.cache_constraint(cache)
 
+    @torch.no_grad()
     def _init(self, prefixes: torch.Tensor, live: torch.Tensor, max_len: torch.Tensor,
               seed: int) -> ServingState:
         """Prefill the first B requests (all slots' rows; this rank keeps

@@ -1,4 +1,5 @@
-"""Language-model surface (port of clipcap_tpu/lm/registry.py: gpt2, gptj, t5).
+"""Language-model surface (port of clipcap_tpu/lm/registry.py: gpt2, gptj, t5;
+and the port's own deepseek_v3, alias moonlight, which JAX lacks).
 
 An LM of the port is an nn.Module with the protocol the decode engine drives:
 
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from ..core.config import GPT2Config, GPTJConfig, T5Config
+from ..core.config import DeepseekV3Config, GPT2Config, GPTJConfig, T5Config
 
 
 class LMFamily(NamedTuple):
@@ -49,8 +50,11 @@ def normalize_lm_type(lm_type: str) -> str:
         return "gptj"
     if t in ("t0", "t5"):
         return "t5"
+    if t in ("deepseek_v3", "deepseek-v3", "moonlight"):
+        return "deepseek_v3"
     raise ValueError(
-        f"invalid language model type {lm_type!r} (expected 'gpt-j' / 'gpt2' / 't0' / 't5')"
+        f"invalid language model type {lm_type!r} (expected 'gpt-j' / 'gpt2' / 't0' / 't5' / "
+        "'deepseek_v3' / 'moonlight')"
     )
 
 
@@ -81,12 +85,19 @@ def _t5() -> LMFamily:
                     t5_from_state_dict)
 
 
+def _deepseek_v3() -> LMFamily:
+    from ..models import deepseek_v3 as m
+
+    return LMFamily(m.DeepseekV3, DeepseekV3Config, m.quantize_params, m.tree_state_dict,
+                    m.params_tree, m.from_hf_state_dict)
+
+
 # the modules load when a family is first asked for (convert imports this one)
-_FAMILIES = {"gpt2": _gpt2, "gptj": _gptj, "t5": _t5}
+_FAMILIES = {"gpt2": _gpt2, "gptj": _gptj, "t5": _t5, "deepseek_v3": _deepseek_v3}
 
 
 def family(lm_type: str) -> LMFamily:
-    """The family of `lm_type` (an alias of gpt2, gptj or t5)."""
+    """The family of `lm_type` (an alias of gpt2, gptj, t5 or deepseek_v3)."""
     return _FAMILIES[normalize_lm_type(lm_type)]()
 
 

@@ -160,13 +160,14 @@ class CaptionerBundle:
         bundle's device. Drive it with `eng.serve(requests,
         prefix_pool=...)`, where the pool rows are project_prefix outputs.
         The activation dtype defaults to the decode LM's embedding table's
-        (wte, or T5's shared): bf16 for the int8 GPT-2; the float model's
-        for the int8 GPT-J and T5, which keep the table as JAX's
-        quantize_params does."""
+        (wte, T5's shared or DeepSeek-V3's embed): bf16 for the int8 GPT-2;
+        the float model's for the int8 GPT-J and T5, which keep the table
+        as JAX's quantize_params does."""
         from ..decode.serving import ServingEngine
 
         lm = self.lm_decode
-        kw.setdefault("dtype", (lm.wte if hasattr(lm, "wte") else lm.shared).dtype)
+        table = next(getattr(lm, n) for n in ("wte", "shared", "embed") if hasattr(lm, n))
+        kw.setdefault("dtype", table.dtype)
         kw.setdefault("device", self.device)
         kw.setdefault("cache_constraint", self.cache_constraint)
         return ServingEngine(self.lm_decode, self.lm_cfg,

@@ -133,5 +133,11 @@ def create_tokenizer(tokenizer_model_type: str, vocab_dir: str):
         return GPTJTokenizerWrapper.create(vocab_dir)
     if t in ("t5", "t0"):
         return T5TokenizerWrapper.create(vocab_dir)
+    if t in ("deepseek_v3", "deepseek-v3", "moonlight"):
+        # Moonlight's tokenizer is tiktoken's, with a pre-tokenizer of its
+        # own: GPT-2's byte-level BPE over its ranks would give other ids
+        raise NotImplementedError(
+            f"no tokenizer for {tokenizer_model_type!r}: Moonlight's tiktoken tokenizer is not "
+            "ported (serving reads token ids only)")
     raise ValueError(
         f"invalid tokenizer model type: {tokenizer_model_type!r} (expected gpt2/gpt-j/t0/t5)")

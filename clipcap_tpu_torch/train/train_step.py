@@ -45,6 +45,9 @@ The compute policy is JAX's:
 - Gradient accumulation (reference acc_grad_batches, train.py:93,288):
   the batch carries a leading [A] axis, and grads and loss are the mean
   over the micro-batches.
+- With a tracer active (utils/profiling.py), the data group's all-reduce
+  loop over the gradients is the call-stack span `train.grad_sync` (the
+  host time that issues it).
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from torch import nn
 from ..core.config import CaptionerConfig, TrainConfig
 from ..core.mesh import all_reduce_
 from ..models.captioner import Captioner
+from ..utils import profiling as P
 from .autoclip import AutoClipState, autoclip_init, autoclip_update, fixed_clip
 from .optim import AdamW, AdamWState, make_optimizer
 
@@ -266,8 +270,9 @@ def make_train_step(cap_cfg: CaptionerConfig, lm_cfg: Any, train_cfg: TrainConfi
             grads = state.shards.reduce(grads)
             norm = state.shards.global_norm(grads)
         elif data_group is not None:
-            for g in grads:
-                all_reduce_(g, data_group)
+            with P.span("train.grad_sync"):
+                for g in grads:
+                    all_reduce_(g, data_group)
         if train_cfg.gradient_clip_val < 0:
             grads, ac_state, clip_metrics = autoclip_update(
                 state.autoclip, grads, train_cfg.autoclip_percentile, norm=norm)

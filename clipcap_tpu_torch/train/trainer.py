@@ -17,6 +17,12 @@ data and runs the full count again after a resume.)
 
 With a `mesh` every rank reads the same global batches, in the one-process
 order, and hands the step its rows of each (JAX's shard_batch).
+
+With a tracer active (utils/profiling.py), each step is the call-stack
+span `train.step`, and inside it `train.data` covers the batch's fetch and
+this rank's row split, not its copy to the card: a copy from pageable host
+memory waits for the card's work queued before it, which is not the data's
+(train/train_step.py adds `train.grad_sync`).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.config import CaptionerConfig, TrainConfig
+from ..utils import profiling as P
 from ..utils.logging import MetricLogger
 from .checkpoints import CheckpointSaver
 from .train_step import TrainState, make_train_step
@@ -63,11 +70,19 @@ def fit(
     for epoch in range(global_step // max(steps_per_epoch, 1), train_cfg.epochs):
         first = global_step - epoch * steps_per_epoch
         for _ in range(first, steps_per_epoch):
+            tr = P.active()
+            if tr is not None:
+                tr.begin("train.step")
+                tr.begin("train.data")
             batch = _next_batch(it, a)
             if mesh is not None:  # this rank's rows (the batch axis follows [A])
                 batch = _data_rows(mesh, batch, axis=0 if a == 1 else 1)
+            if tr is not None:
+                tr.end()
             batch = {k: torch.tensor(v, device=device) for k, v in batch.items()}
             state, metrics = step_fn(state, batch)
+            if tr is not None:
+                tr.end()
             global_step += 1
 
             if global_step % train_cfg.log_every_n_steps == 0:

@@ -105,6 +105,18 @@ def test_mesh_training_equals_one_process(runs, world, case):
         _close(rank_res[case], runs[None][case])
 
 
+@pytest.mark.parametrize("world", WORLDS)
+def test_traced_fit_spans_each_step_and_equals_the_step_loop(runs, world):
+    """trainer.fit under a tracer: each step a `train.step` holding its
+    `train.data` and the step's `train.grad_sync`, and the same parameters
+    as the untraced step loop."""
+    want = [("train.step", None), ("train.data", "train.step"),
+            ("train.grad_sync", "train.step")] * W.TRAIN_STEPS
+    for rank_res in runs[world]:
+        assert rank_res["fit"]["spans"] == want
+        _close(dict(rank_res["fit"], losses=[]), dict(runs[None]["dp"], losses=[]))
+
+
 def test_data_and_pipe_2x2_equals_one_process(runs):
     for rank_res in runs[4]:
         _close(rank_res["dp_pp"], runs[None]["pp"])

@@ -286,6 +286,30 @@ def train_run(mesh=None, zero=False, pipe_micro=0, accumulate=1, int8_prefix=Fal
     return res
 
 
+def traced_fit(mesh) -> dict:
+    """trainer.fit over the TRAIN_STEPS global batches under a tracer: the
+    final parameters, and (name, enclosing span's name) of each call-stack
+    span it recorded."""
+    from clipcap_tpu_torch.models.captioner import Captioner
+    from clipcap_tpu_torch.train.train_step import create_train_state
+    from clipcap_tpu_torch.train.trainer import fit
+    from clipcap_tpu_torch.utils import profiling as P
+    from clipcap_tpu_torch.utils.logging import MetricLogger
+
+    train_cfg = TC.TrainConfig(epochs=1, **TRAIN)
+    lm_cfg = TC.GPT2Config(**GPT2_TRAIN)
+    cap_cfg = TC.CaptionerConfig(lm_type="gpt2", mapper=TC.MapperConfig(**MAPPER_TRAIN))
+    model = Captioner(cap_cfg, lm_cfg, device="cpu", seed=0)
+    state, tx = create_train_state(0, cap_cfg, lm_cfg, train_cfg, model=model, device="cpu",
+                                   mesh=mesh)
+    with P.tracing() as tr:
+        fit(state, tx, cap_cfg, lm_cfg, train_cfg, train_batches(), TRAIN_STEPS,
+            logger=MetricLogger(echo=False), mesh=mesh)
+    spans = [(s.name, None if s.parent is None else tr.spans[s.parent].name) for s in tr.spans]
+    return {"spans": spans,
+            "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
+
+
 def _rows(mesh, v: np.ndarray, axis: int) -> np.ndarray:
     from clipcap_tpu_torch.core.mesh import data_rows
 
@@ -355,7 +379,7 @@ def train_worker(out, jax_state: str) -> None:
     cap = TC.CaptionerConfig(lm_type="gpt2", mapper=TC.MapperConfig(**MAPPER_TRAIN))
     model = Captioner(cap, TC.GPT2Config(**GPT2_TRAIN), device="cpu", seed=0)
     res = {"shard_params": {n: t.clone() for n, t in shard_params(model, data, zero=True).items()}}
-    res.update({"dp": train_run(data),
+    res.update({"dp": train_run(data), "fit": traced_fit(data),
            "zero": train_run(data, zero=True, ckpt=str(Path(out) / f"zero_ckpt_w{world}")),
            "zero_acc": train_run(data, zero=True, accumulate=2),
            "int8_prefix": train_run(data, zero=True, int8_prefix=True)})
